@@ -1,0 +1,37 @@
+"""Index factory (port of reindexer_tpu/index/factory.py).
+
+`vec_bf` builds the port's brute-force engine on the namespace's device.
+Scalar, composite and rtree indexes are host-only and come from the JAX
+package's own factory, which builds them without touching JAX. Engines not
+ported yet raise NotImplementedError rather than silently building a JAX
+engine.
+"""
+from __future__ import annotations
+
+import torch
+
+from reindexer_tpu.core.payload import IndexDef
+from reindexer_tpu.core.type_consts import IndexType
+from reindexer_tpu.index import factory as _ref
+from reindexer_tpu.index.base import Index
+
+_NOT_PORTED = {
+    IndexType.HNSW: "HNSW (and streaming KNN)",
+    IndexType.IVF: "IVF",
+    IndexType.TEXT: "full-text",
+}
+
+
+def create_index(idef: IndexDef, device: torch.device) -> Index:
+    if idef.index_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{_NOT_PORTED[idef.index_type]} indexes are not yet ported to "
+            "reindexer_tpu_torch, see ROADMAP")
+    if idef.index_type == IndexType.VEC_BF:
+        if idef.opts.is_array:
+            raise NotImplementedError(
+                "array vector indexes are not yet ported to "
+                "reindexer_tpu_torch, see ROADMAP")
+        from .vector.brute_force import BruteForceIndex
+        return BruteForceIndex(idef, device)
+    return _ref._create(idef)
