@@ -4,20 +4,37 @@
 
 Phases, in order; any failure raises, so the exit code is not 0:
   0. identity: the card's name and power limit (nvidia-smi), torch, CUDA;
-  1. build: K1 bf_scan and K2 bf_select with nvcc from csrc/, timed;
-  2. kernels vs their plain PyTorch versions on the card at the main path's
+  1. build: the five kernels (K1 bf_scan, K2 bf_select, K3 sq8_scan, K4
+     sq8_select, K5 sq8_i8_scan) with nvcc from csrc/, one nvcc per source,
+     all started together, timed, with ptxas's registers and spills;
+  2. K1/K2 vs their plain PyTorch versions on the card at the main path's
      shapes (131072 x 128, 64 queries, k=100, L2 and IP, with invalid rows)
      and at 1,048,576 x 128 (L2), with times (CUDA events, median of 20
      runs of 10 back-to-back calls, after warm-up);
-  3. the main path through the public API: a 100,000 x 128 L2 vec_bf
+  3. the fp32 main path through the public API: a 100,000 x 128 L2 vec_bf
      namespace, 1,000 deletes, 64 single selects and knn_batch with 64 and
      256 queries, checked against a float64 numpy oracle, with the launch
      counts of K1/K2 over that run;
+  4. K3/K4/K5 vs their plain versions on the card at the same shapes, codes
+     from the port's encoder on a 0.001 / 0.999 quantile grid: K3 in both
+     modes, K5 bit for bit and K5 + K2's ids, K4 on clustered data (no
+     flag, same top-k) and on isotropic data (the same queries flag), with
+     times beside the plain versions';
+  5. the SQ8 main path through the public API: a 100,000 x 128 L2
+     namespace with three SQ8 vec_bf fields over the same vectors (modes
+     exact, approx, approx_rerank), 1,000 deletes, and a second, clustered
+     namespace in exact mode; per field 64 single selects and knn_batch with
+     64, 100 and 256 queries. Exact matches the float64 oracle; approx
+     matches the plain versions' composition on the card up to ties and
+     recalls >= 0.9 of the oracle's top-100; approx_rerank ranks are the
+     exact distances. The launch counts and the ladder's counters of each
+     field's run are printed, and K3, K4 and K5 must each have launched;
 then one JSON line for the kernels and, last, the result line.
 There is no CPU path: without CUDA the script exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -41,6 +58,10 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-3     # fp32 sums in another order than cuBLAS
 K2_RTOL, K2_ATOL = 1e-4, 1e-3
 TIE_RTOL = 1e-4                   # ids may differ only between near-ties
 RANK_RTOL = 1e-4
+APPROX_TIE_RTOL = 1e-5            # K5 is bit-equal to its plain version;
+#                                   K3's fp32 sums round in another order
+APPROX_MIN_RECALL = 0.9
+CLUSTER_ROWS = 7168               # rows per cluster: 112 blocks of 64
 
 
 def log(msg: str) -> None:
@@ -89,16 +110,20 @@ def phase_identity() -> tuple[str, str]:
     return card, torch.cuda.get_device_name(0)
 
 
+KERNELS = ("bf_scan", "bf_select", "sq8_scan", "sq8_select", "sq8_i8_scan")
+
+
 def phase_build() -> None:
     from reindexer_tpu_torch.ops import _build
-    for name in ("bf_scan", "bf_select"):
-        t0 = time.perf_counter()
-        _build.load(name)
+    t0 = time.perf_counter()
+    _build.load_all(list(KERNELS))
+    log(f"[build] all {len(KERNELS)} kernels: "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    for name in KERNELS:
         secs, out = _build.build_info[name]
         ptxas = [ln.strip() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {secs:.2f} s) {' | '.join(ptxas)}")
+        log(f"[build] {name}: nvcc {secs:.2f} s {' | '.join(ptxas)}")
 
 
 def make_scan_inputs(rng, n: int, d: int, n_q: int, metric, dev):
@@ -283,6 +308,362 @@ def phase_main_path(card: str) -> dict:
     return {"bf_scan": k1, "bf_select": k2}
 
 
+def make_clustered(rng, n: int, n_q: int):
+    """Block-coherent clustered rows: clusters of CLUSTER_ROWS consecutive
+    rows (112 blocks of 64) around their own center, as a bulk load ordered
+    by category or source lays them out; queries near a full cluster's
+    center."""
+    n_cl = -(-n // CLUSTER_ROWS)
+    centers = rng.standard_normal((n_cl, MAIN_D), dtype=np.float32) * 3.0
+    base = centers[np.arange(n) // CLUSTER_ROWS]
+    base += 0.3 * rng.standard_normal((n, MAIN_D), dtype=np.float32)
+    q = (centers[rng.integers(0, n // CLUSTER_ROWS, n_q)]
+         + 0.3 * rng.standard_normal((n_q, MAIN_D), dtype=np.float32))
+    return base, q.astype(np.float32)
+
+
+def make_sq8_case(rng, n: int, metric, clustered: bool, dev):
+    """A keeper of n rows on the card (1% of them removed) and its SQ8
+    store, quantized by the port's own QuantizedStore (0.001 / 0.999
+    quantile grid, the port's encoder)."""
+    from reindexer_tpu_torch.index.vector.keeper import VectorKeeper
+    from reindexer_tpu_torch.index.vector.quantization import QuantizedStore
+    if clustered:
+        base, q = make_clustered(rng, n, MAIN_Q)
+    else:
+        base = rng.standard_normal((n, MAIN_D), dtype=np.float32)
+        q = rng.standard_normal((MAIN_Q, MAIN_D), dtype=np.float32)
+    keeper = VectorKeeper(MAIN_D, metric, dev, start_size=n)
+    keeper.bulk_load(base)
+    invalid = rng.choice(n, size=n // 100, replace=False)
+    for r in invalid.tolist():
+        keeper.remove(r)
+    keeper.flush()
+    store = QuantizedStore(0.001, 0.999, 1)
+    store.quantize(keeper)
+    return keeper, store, torch.from_numpy(q).to(dev), invalid
+
+
+def check_k4(o, p, exact, tag: str, require_no_flag: bool) -> tuple[int, float]:
+    """K4 (o) against its plain version (p), both (scores, ids, flag): the
+    same queries flag; unflagged ones have the same top-k up to near-ties of
+    the exact scores and scores within fp32 rounding. Returns (flagged
+    queries, max abs score error)."""
+    flag, p_flag = o[2].cpu().numpy() > 0, p[2].cpu().numpy() > 0
+    if (flag != p_flag).any():
+        raise AssertionError(f"{tag}: K4 and its plain version flag "
+                             f"different queries")
+    if require_no_flag and flag.any():
+        raise AssertionError(f"{tag}: K4 flagged {int(flag.sum())} queries")
+    ok = ~flag
+    if not ok.any():
+        return int(flag.sum()), 0.0
+    o_s, p_s = o[0].cpu().numpy()[ok], p[0].cpu().numpy()[ok]
+    o_i, p_i = o[1].cpu().numpy()[ok], p[1].cpu().numpy()[ok]
+    ex = exact[ok]
+    scale = float(np.abs(ex).max())
+    if not np.allclose(o_s, p_s, rtol=K2_RTOL, atol=K2_ATOL):
+        raise AssertionError(f"{tag}: K4 scores disagree")
+    bad = sum(tie_violations(o_i[b], p_i[b], lambda i, b=b: float(ex[b, i]),
+                             float(p_s[b, -1]), TIE_RTOL)
+              for b in range(len(o_i)))
+    if bad:
+        raise AssertionError(f"{tag}: K4 ids disagree: {bad} mismatches "
+                             f"beyond ties (score scale {scale:.3g})")
+    return int(flag.sum()), float(np.abs(o_s - p_s).max())
+
+
+def phase_sq8_kernels(dev) -> dict:
+    """K3/K5/K4 against their plain versions on the card. Returns
+    per-kernel {max_abs_err, ms, plain_ms} (times at the main path's
+    shape, L2)."""
+    from reindexer_tpu_torch import VectorMetric
+    from reindexer_tpu_torch.ops.scan import (score_factor, sq8_i8_scan,
+                                              sq8_i8_scan_plain, sq8_scan,
+                                              sq8_scan_plain)
+    from reindexer_tpu_torch.ops.select import (FAST_EPS_SIGMA, bf_select,
+                                                bf_select_plain,
+                                                quantize_queries, sq8_select,
+                                                sq8_select_plain)
+    rng = np.random.default_rng(SEED + 3)
+    stats = {name: {"max_abs_err": 0.0}
+             for name in ("sq8_scan", "sq8_select", "sq8_i8_scan")}
+
+    def err(name, value):
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], value)
+
+    cases = [(MAIN_N, VectorMetric.L2), (MAIN_N, VectorMetric.INNER_PRODUCT),
+             (BIG_N, VectorMetric.L2)]
+    for n, metric in cases:
+        tag = f"N={n} D={MAIN_D} Q={MAIN_Q} k={K} {metric.name}"
+        fac = score_factor(metric)
+        keeper, st, q, invalid = make_sq8_case(rng, n, metric, False, dev)
+        sq_eff, codes = keeper.sq_eff(), st.codes
+        qa = q * st.alpha[None, :]
+        zeros = torch.zeros(MAIN_Q, dtype=torch.float32, device=dev)
+        shift = fac * (q @ st.lo)
+        # K3, S mode and bmax-only mode
+        s3, b3 = sq8_scan(qa, codes, sq_eff, zeros, metric)
+        s3_p, b3_p = sq8_scan_plain(qa, codes, sq_eff, zeros, metric)
+        _, bq = sq8_scan(qa, codes, sq_eff, shift, metric, with_s=False)
+        _, bq_p = sq8_scan_plain(qa, codes, sq_eff, shift, metric,
+                                 with_s=False)
+        torch.cuda.synchronize()
+        for got, want in ((s3, s3_p), (b3, b3_p), (bq, bq_p)):
+            if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
+                raise AssertionError(f"K3 disagrees with its plain version "
+                                     f"at {tag}")
+        k3_err = max(float((a - b).abs().max())
+                     for a, b in ((s3, s3_p), (b3, b3_p), (bq, bq_p)))
+        err("sq8_scan", k3_err)
+        del s3, b3, s3_p, b3_p, bq_p
+        # K5, and K5 + K2
+        qa_i8, sqscale, _ = quantize_queries(q, st.lo, st.alpha, metric)
+        s5, b5 = sq8_i8_scan(qa_i8, sqscale, codes, sq_eff)
+        s5_p, b5_p = sq8_i8_scan_plain(qa_i8, sqscale, codes, sq_eff)
+        torch.cuda.synchronize()
+        if not (torch.equal(s5, s5_p) and torch.equal(b5, b5_p)):
+            raise AssertionError(f"K5 is not bit-equal to its plain version "
+                                 f"at {tag}")
+        o = bf_select(s5, b5, zeros, K)
+        p = bf_select_plain(s5_p, b5_p, zeros, K)
+        s_host = s5_p.cpu().numpy()
+        o_i, p_i = o[1].cpu().numpy(), p[1].cpu().numpy()
+        kth = p[0][:, K - 1].cpu().numpy()
+        bad = sum(tie_violations(o_i[b], p_i[b],
+                                 lambda i, b=b: float(s_host[b, i]),
+                                 float(kth[b]), APPROX_TIE_RTOL)
+                  for b in range(MAIN_Q))
+        if bad or not torch.equal(o[0], p[0]) or np.isin(o_i, invalid).any():
+            raise AssertionError(f"K5 + K2 ids disagree with the plain "
+                                 f"composition at {tag}")
+        del s5_p, b5_p, s_host
+        # K4 on this isotropic data: cert and fast eps
+        base = keeper.data
+        exact = (fac * (q.double() @ base.double().T)
+                 - sq_eff.double()[None, :]).cpu().numpy()
+        eps = {"cert": fac * (q.abs() * st.err_dims).sum(dim=1),
+               "fast": FAST_EPS_SIGMA * fac * torch.sqrt(
+                   (q * q * st.ms_dims).sum(dim=1))}
+        flagged = {}
+        for mode, e in eps.items():
+            o = sq8_select(bq, e, q, base, sq_eff, K, metric)
+            p = sq8_select_plain(bq, e, q, base, sq_eff, K, metric)
+            torch.cuda.synchronize()
+            flagged[mode], k4_err = check_k4(o, p, exact, f"{tag} {mode}",
+                                             require_no_flag=False)
+            err("sq8_select", k4_err)
+        # K4 on clustered data: nothing may flag
+        ckeeper, cst, cq, _ = make_sq8_case(rng, n, metric, True, dev)
+        c_sq, c_base = ckeeper.sq_eff(), ckeeper.data
+        _, cbq = sq8_scan(cq * cst.alpha[None, :], cst.codes, c_sq,
+                          fac * (cq @ cst.lo), metric, with_s=False)
+        c_eps = fac * (cq.abs() * cst.err_dims).sum(dim=1)
+        o = sq8_select(cbq, c_eps, cq, c_base, c_sq, K, metric)
+        p = sq8_select_plain(cbq, c_eps, cq, c_base, c_sq, K, metric)
+        torch.cuda.synchronize()
+        c_exact = (fac * (cq.double() @ c_base.double().T)
+                   - c_sq.double()[None, :]).cpu().numpy()
+        _, k4_err = check_k4(o, p, c_exact, f"{tag} clustered",
+                             require_no_flag=True)
+        err("sq8_select", k4_err)
+        del exact, c_exact
+        t = {"k3_s": cuda_time_ms(
+                 lambda: sq8_scan(qa, codes, sq_eff, zeros, metric)),
+             "k3_s_plain": cuda_time_ms(
+                 lambda: sq8_scan_plain(qa, codes, sq_eff, zeros, metric)),
+             "k3": cuda_time_ms(lambda: sq8_scan(qa, codes, sq_eff, shift,
+                                                 metric, with_s=False)),
+             "k3_plain": cuda_time_ms(lambda: sq8_scan_plain(
+                 qa, codes, sq_eff, shift, metric, with_s=False)),
+             "k5": cuda_time_ms(
+                 lambda: sq8_i8_scan(qa_i8, sqscale, codes, sq_eff)),
+             "k5_plain": cuda_time_ms(
+                 lambda: sq8_i8_scan_plain(qa_i8, sqscale, codes, sq_eff)),
+             "k4": cuda_time_ms(lambda: sq8_select(cbq, c_eps, cq, c_base,
+                                                   c_sq, K, metric)),
+             "k4_plain": cuda_time_ms(lambda: sq8_select_plain(
+                 cbq, c_eps, cq, c_base, c_sq, K, metric))}
+        log(f"[sq8 kernels] {tag}: K3 err {k3_err:.3g}, ms bmax-only "
+            f"{t['k3']:.4f} (plain {t['k3_plain']:.4f}), S mode "
+            f"{t['k3_s']:.4f} (plain {t['k3_s_plain']:.4f}); K5 bit-equal, "
+            f"ms {t['k5']:.4f} (plain {t['k5_plain']:.4f}), K5 + K2 ids "
+            f"match up to ties; K4 isotropic flags cert "
+            f"{flagged['cert']}/{MAIN_Q}, fast {flagged['fast']}/{MAIN_Q} "
+            f"(same queries as plain); K4 clustered flags 0, ids match up "
+            f"to ties, ms {t['k4']:.4f} (plain {t['k4_plain']:.4f})")
+        if n == MAIN_N and metric == VectorMetric.L2:
+            stats["sq8_scan"].update(ms=t["k3"], plain_ms=t["k3_plain"])
+            stats["sq8_i8_scan"].update(ms=t["k5"], plain_ms=t["k5_plain"])
+            stats["sq8_select"].update(ms=t["k4"], plain_ms=t["k4_plain"])
+        del keeper, st, ckeeper, cst, codes, sq_eff, qa, qa_i8, bq, cbq
+        torch.cuda.empty_cache()
+    return stats
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block the composed scans of ops.select call the kernels'
+    plain versions, on whatever device their tensors are."""
+    from reindexer_tpu_torch.ops import scan, select
+    plain = {"bf_scan": scan.bf_scan_plain, "bf_select": select.bf_select_plain,
+             "sq8_scan": scan.sq8_scan_plain,
+             "sq8_select": select.sq8_select_plain,
+             "sq8_i8_scan": scan.sq8_i8_scan_plain}
+    saved = {name: getattr(select, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(select, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(select, name, fn)
+
+
+def run_field(db, ns: str, field: str, queries) -> tuple[dict, dict, dict]:
+    """The public-API run of one field with every counter set to 0 just
+    before it: 64 single selects and knn_batch with 64, 100 and 256
+    queries. Returns (results by entry point, qps, counts)."""
+    from reindexer_tpu_torch import KnnSearchParams, Query
+    from reindexer_tpu_torch.index.vector import brute_force
+    from reindexer_tpu_torch.ops import scan, select
+    counters = {"bf_scan": scan.launches, "bf_select": select.launches,
+                "sq8_scan": scan.sq8_scan_launches,
+                "sq8_select": select.sq8_select_launches,
+                "sq8_i8_scan": scan.sq8_i8_scan_launches}
+    counters.update((name, getattr(brute_force, name)) for name in (
+        "sq8_cert_overflows", "sq8_fast_overflows", "approx_reruns",
+        "overflow_reruns", "geometry_scans"))
+    for c in counters.values():
+        c.reset()
+    params = KnnSearchParams(k=K)
+    # the first select flushes the pending rows and quantizes them
+    db.select(Query(ns).where_knn(field, queries[0], params))
+    results, qps = {}, {}
+    single = []
+    t0 = time.perf_counter()
+    for qi in range(64):
+        res = db.select(Query(ns).where_knn(field, queries[qi], params))
+        single.append(([d["id"] for d in res.docs()], res.ranks()))
+    qps["select"] = 64 / (time.perf_counter() - t0)
+    results["select"] = single
+    for nq in (64, 100, 256):
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = db.knn_batch(ns, field, queries[:nq], params)
+            secs.append(time.perf_counter() - t0)
+            results.setdefault(f"knn_batch_{nq}", [
+                ([d["id"] for d in r.docs()], r.ranks()) for r in out])
+        qps[f"knn_batch_{nq}"] = nq / statistics.median(secs)
+    torch.cuda.synchronize()
+    return results, qps, {name: c.value for name, c in counters.items()}
+
+
+def check_approx(db, ns: str, field: str, queries, results, dist,
+                 dev) -> float:
+    """approx: ids equal, up to ties of the quantized score, to the plain
+    versions' composition of the same path run on the card. approx_rerank:
+    ranks are the exact distances of the returned ids, sorted. Returns
+    recall@K against the float64 oracle's top-K over every result."""
+    ix = db.get_namespace(ns).get_index(field)
+    hits = total = 0
+    for name, res in results.items():
+        if field == "approx":
+            nq = 64 if name == "select" else int(name.rsplit("_", 1)[1])
+            qd = torch.from_numpy(queries[:nq]).to(dev)
+            with plain_kernels():
+                s_p, i_p, _ = ix._dispatch_scan(qd, K)
+            s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        for qi, (ids, ranks) in enumerate(res):
+            if field == "approx":
+                # an approx rank is the negated quantized score (L2)
+                score = dict(zip(i_p[qi].tolist(), s_p[qi].tolist()))
+                score.update(zip(ids, (-np.asarray(ranks)).tolist()))
+                if tie_violations(ids, i_p[qi].tolist(), lambda i: score[i],
+                                  float(s_p[qi, K - 1]), APPROX_TIE_RTOL):
+                    raise AssertionError(
+                        f"{ns}.{field} {name}: query {qi} ids disagree with "
+                        "the plain composition beyond ties")
+            elif not (np.allclose(ranks, dist[qi][ids], rtol=RANK_RTOL,
+                                  atol=1e-3) and (np.diff(ranks) >= 0).all()):
+                raise AssertionError(
+                    f"{ns}.{field} {name}: query {qi} ranks are not the "
+                    "exact distances, sorted")
+            want = np.argsort(dist[qi], kind="stable")[:K]
+            hits += len(set(ids) & set(want.tolist()))
+            total += K
+    return hits / total
+
+
+def phase_sq8_main_path(card: str, dev) -> dict:
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     QuantizationConfig, Reindexer,
+                                     VectorMetric)
+    rng = np.random.default_rng(SEED + 2)
+    base = rng.standard_normal((DOCS, MAIN_D), dtype=np.float32)
+    queries = rng.standard_normal((256, MAIN_D), dtype=np.float32)
+    cbase, cqueries = make_clustered(rng, DOCS, 256)
+    modes = ("exact", "approx", "approx_rerank")
+    alive = {}
+
+    def sq8_field(name, mode):
+        return IndexDef(name, "vec_bf", vector_opts=FloatVectorOpts(
+            dims=MAIN_D, metric=VectorMetric.L2,
+            quantization=QuantizationConfig(enabled=True, mode=mode)))
+
+    t0 = time.perf_counter()
+    db = Reindexer(device=dev)
+    pk = IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True))
+    db.open_namespace("sq8", [pk] + [sq8_field(m, m) for m in modes])
+    db.open_namespace("sq8c", [pk, sq8_field("exact", "exact")])
+    for ns, vecs, fields in (("sq8", base, modes), ("sq8c", cbase,
+                                                     ("exact",))):
+        rows = vecs.tolist()
+        for i in range(DOCS):
+            db.upsert(ns, {"id": i, **dict.fromkeys(fields, rows[i])})
+        deleted = rng.choice(DOCS, size=DELETES, replace=False)
+        for i in deleted.tolist():
+            db.delete(ns, {"id": i})
+        alive[ns] = np.ones(DOCS, dtype=bool)
+        alive[ns][deleted] = False
+    log(f"[sq8 main] set-up: {DOCS} upserts of 3 SQ8 fields + {DOCS} of 1 "
+        f"clustered field + 2 x {DELETES} deletes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dist = {"sq8": oracle_distances(queries, base, alive["sq8"]),
+            "sq8c": oracle_distances(cqueries, cbase, alive["sq8c"])}
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = [("sq8", m, queries) for m in modes] + [("sq8c", "exact",
+                                                   cqueries)]
+    for ns, field, qs in runs:
+        results, qps, counts = run_field(db, ns, field, qs)
+        for name in KERNELS:
+            launches[name] += counts[name]
+        tag = f"{ns}.{field}"
+        if field == "exact":
+            for name, res in results.items():
+                check_against_oracle(res, dist[ns], f"{tag} {name}")
+            verdict = "match the float64 oracle"
+        else:
+            recall = check_approx(db, ns, field, qs, results, dist[ns], dev)
+            if recall < APPROX_MIN_RECALL:
+                raise AssertionError(f"{tag}: recall@{K} {recall:.4f} < "
+                                     f"{APPROX_MIN_RECALL}")
+            verdict = (f"match the plain composition on the card; "
+                       f"recall@{K} vs the float64 oracle {recall:.4f}")
+        log(f"[sq8 main] {tag}: select x64, knn_batch(64, 100, 256) "
+            f"{verdict}")
+        log(f"[sq8 main] {tag} counts over its run: " + ", ".join(
+            f"{name} {v}" for name, v in counts.items()))
+        log(f"[sq8 main] {tag} qps on {card} (host clock): " + ", ".join(
+            f"{name} {v:.1f}" for name, v in qps.items()))
+    missing = [name for name in ("sq8_scan", "sq8_select", "sq8_i8_scan")
+               if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the SQ8 main path did not launch {missing}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
@@ -293,16 +674,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     stats = phase_kernels(dev)
     launches = phase_main_path(card)
+    stats.update(phase_sq8_kernels(dev))
+    sq8_launches = phase_sq8_main_path(card, dev)
+    launches.update((name, sq8_launches[name])
+                    for name in ("sq8_scan", "sq8_select", "sq8_i8_scan"))
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     replaces = {"bf_scan": "reindexer_tpu/ops/pallas_scan.py:94",
-                "bf_select": "reindexer_tpu/ops/pallas_select.py:574"}
+                "bf_select": "reindexer_tpu/ops/pallas_select.py:574",
+                "sq8_scan": "reindexer_tpu/ops/pallas_scan.py:311 + "
+                            "reindexer_tpu/ops/pallas_select.py:247",
+                "sq8_select": "reindexer_tpu/ops/pallas_select.py:948",
+                "sq8_i8_scan": "reindexer_tpu/ops/pallas_select.py:1453"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"reindexer_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-               for name in ("bf_scan", "bf_select")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

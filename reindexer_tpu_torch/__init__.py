@@ -12,10 +12,11 @@ indexes live on:
         IndexDef("vec", "vec_bf", vector_opts=FloatVectorOpts(dims=128))])
     res = db.select(Query("items").where_knn("vec", qvec, KnnSearchParams(k=10)))
 
-Ported so far: the exact brute-force (`vec_bf`) vector index, fp32, with its
-two hand-written CUDA kernels, and every host-only index type. HNSW, IVF,
-full text, SQ8, array vector indexes, storage and meshes raise
-NotImplementedError (see ROADMAP.md). The package never imports JAX.
+Ported so far: the brute-force (`vec_bf`) vector index, fp32 and SQ8
+(modes exact, approx, approx_rerank), with its five hand-written CUDA
+kernels, and every host-only index type. HNSW, IVF, full text, array vector
+indexes, storage and meshes raise NotImplementedError (see ROADMAP.md). The
+package never imports JAX.
 """
 from reindexer_tpu import (AggType, BruteForceSearchParams, CondType,
                            ConflictError, EmbeddingConfig, FieldType,

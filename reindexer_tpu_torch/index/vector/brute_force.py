@@ -1,55 +1,195 @@
-"""Brute-force vector index, exact fp32 mode (port of
+"""Brute-force vector index (port of
 reindexer_tpu/index/vector/brute_force.py).
 
-Every select scans the whole base: K1 `bf_scan` scores it and K2
-`bf_select` picks the exact top-k (ops.select.knn_scan_fused), for
-k <= 128. Larger k runs the plain chunked scan ops.distance.knn_scan, and so
-does a query whose K2 selection overflowed its slot capacity (mass ties).
-Both are counted: `geometry_scans` and `overflow_reruns`.
+Every select scans the whole base. `_dispatch_scan` picks the scan:
 
-SQ8 quantization and mesh-resident mode are not ported yet (see ROADMAP).
+  fp32 (no SQ8, or SQ8 not active yet)
+      K1 `bf_scan` + K2 `bf_select` (ops.select.knn_scan_fused) for
+      k <= 128; the plain chunked scan ops.distance.knn_scan above that.
+  SQ8, mode "exact"
+      K3 `sq8_scan` (bmax only) + K4 `sq8_select` (ops.select.knn_scan_sq8)
+      for k <= 124: quantized block maxima, an eps-widened threshold, exact
+      fp32 scores of the admitted rows. For k > 124, the fp32 path. Unlike
+      the JAX engine off a TPU (or above 128 queries, or k > 124), exact is
+      exact for every batch size and k.
+  SQ8, modes "approx" / "approx_rerank"
+      the top-k of quantized scores (the reference's SQ8 semantics): K5
+      `sq8_i8_scan` + K2 (ops.select.knn_scan_approx_sq8) for batches of
+      <= 64 or a multiple of 64; K3 (scores) + K2
+      (ops.select.knn_scan_fused_sq8) for other batches; the plain
+      knn_scan_quantized for k > 128. approx_rerank then re-scores the k
+      winners exactly (ops.hnsw_kernels.exact_rescore).
+
+A kernel selection whose admitted blocks overflow its slot capacity raises a
+flag; if any query of a batch flags, the drain reruns the whole batch one
+rung down its ladder:
+  exact SQ8   cert eps -> fast eps (sticky per index) -> the fp32 path;
+  approx      K3 + K2 -> the plain knn_scan_quantized;
+  fp32        K1 + K2 -> the plain knn_scan.
+Every rung off the kernels' first choice is counted: `sq8_cert_overflows`,
+`sq8_fast_overflows`, `approx_reruns`, `overflow_reruns` and
+`geometry_scans` (selects whose k the kernels do not take).
+
+Mesh-resident mode is not ported yet (see ROADMAP).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
+from reindexer_tpu.core.errors import ParamsError
 from reindexer_tpu.core.payload import IndexDef
 from reindexer_tpu.index.base import SelectKeyResult
 from reindexer_tpu.index.vector.params import KnnSearchParams
 
 from ...ops._build import Counter
 from ...ops.distance import knn_scan, pairwise_scores, scores_to_ranks
+from ...ops.hnsw_kernels import exact_rescore
 from ...ops.scan import SQ_EFF_BIG
-from ...ops.select import S_SLOTS, knn_scan_fused
+from ...ops.select import (GROUP, MARGIN, S_SLOTS, knn_scan_approx_sq8,
+                           knn_scan_fused, knn_scan_fused_sq8, knn_scan_sq8)
 from .base import FloatVectorIndexBase
+from .quantization import QuantizedStore, knn_scan_quantized
 
-geometry_scans = Counter()    # selects with k > 128, run by knn_scan
-overflow_reruns = Counter()   # K2 overflows rerun by knn_scan
+geometry_scans = Counter()      # selects with a k the kernels do not take
+overflow_reruns = Counter()     # fp32 K2 overflows rerun by knn_scan
+approx_reruns = Counter()       # approx SQ8 overflows rerun by K3 + K2
+sq8_cert_overflows = Counter()  # exact SQ8 cert-eps overflows (-> fast)
+sq8_fast_overflows = Counter()  # exact SQ8 fast-eps overflows (-> fp32)
+
+QUANT_MODES = ("exact", "approx", "approx_rerank")
 
 
 class BruteForceIndex(FloatVectorIndexBase):
     def __init__(self, definition: IndexDef, device: torch.device):
-        if definition.vector_opts.quantization.enabled:
-            raise NotImplementedError(
-                "SQ8 quantization of vec_bf is not yet ported to "
-                "reindexer_tpu_torch, see ROADMAP (SQ8 brute force)")
         super().__init__(definition, device)
+        qc = definition.vector_opts.quantization
+        # exact SQ8's eps ladder starts at the certified bound; the first
+        # overflow makes the index stick to the 12-sigma "fast" bound.
+        # RX_SQ8_EPS=fast skips the certified attempt.
+        self._sq8_mode = os.environ.get("RX_SQ8_EPS", "cert")
+        self._quant_mode = qc.mode if qc.enabled else "exact"
+        if self._quant_mode not in QUANT_MODES:
+            raise ParamsError(
+                f"unknown quantization mode '{self._quant_mode}'")
+        self._quant = (QuantizedStore(qc.left_quantile, qc.right_quantile,
+                                      qc.min_elements)
+                       if qc.enabled else None)
 
+    def _quant_active(self) -> bool:
+        return self._quant is not None and self._quant.active
+
+    def _maybe_quantize(self) -> None:
+        if self._quant is None:
+            return
+        if self._quant.need_requantize(self.keeper.count,
+                                       self.keeper.capacity):
+            self._quant.quantize(self.keeper)
+        elif self._quant.need_refresh(self.keeper.count):
+            self._quant.refresh(self.keeper)
+
+    def memstat(self) -> dict:
+        st = super().memstat()
+        if self._quant is not None:
+            st.update(self._quant.memstat())
+        return st
+
+    # --- scans ----------------------------------------------------------
     def _scan_plain(self, q: torch.Tensor, k: int):
         sq_eff = self.keeper.sq_eff()
         return knn_scan(q, self.keeper.data, sq_eff < SQ_EFF_BIG / 2, sq_eff,
                         k, self.metric)
 
-    def _dispatch_scan(self, q: torch.Tensor, k: int):
-        """(scores, ids, flag) on the device; flag is None when the plain
-        scan ran (it cannot overflow)."""
+    def _scan_fp32(self, q: torch.Tensor, k: int):
+        """(scores, ids, flag) of the exact fp32 path; flag is None when the
+        plain scan ran (it cannot overflow)."""
         if k <= S_SLOTS:
             return knn_scan_fused(q, self.keeper.data, self.keeper.sq_eff(),
                                   k, self.metric)
-        geometry_scans.add()
         s, i = self._scan_plain(q, k)
         return s, i, None
+
+    def _scan_quantized_plain(self, q: torch.Tensor, k: int):
+        st, sq_eff = self._quant, self.keeper.sq_eff()
+        return knn_scan_quantized(q, st.codes, st.lo, st.alpha,
+                                  sq_eff < SQ_EFF_BIG / 2, sq_eff, k,
+                                  self.metric)
+
+    def _rerank(self, q: torch.Tensor, s: torch.Tensor, i: torch.Tensor):
+        if self._quant_mode != "approx_rerank":
+            return s, i
+        return exact_rescore(q, self.keeper.data, self.keeper.sq_eff(), i, s,
+                             self.metric)
+
+    def _scan_approx(self, q: torch.Tensor, k: int):
+        """(scores, ids, flag) of the approx modes; flag None when the plain
+        quantized scan ran."""
+        st, sq_eff = self._quant, self.keeper.sq_eff()
+        n_q = q.shape[0]
+        if k > S_SLOTS:
+            geometry_scans.add()
+            s, i = self._scan_quantized_plain(q, k)
+            flag = None
+        elif n_q <= GROUP or n_q % GROUP == 0:
+            s, i, flag = knn_scan_approx_sq8(q, st.codes, st.lo, st.alpha,
+                                             sq_eff, k, self.metric)
+        else:
+            s, i, flag = knn_scan_fused_sq8(q, st.codes, st.lo, st.alpha,
+                                            sq_eff, k, self.metric)
+        return (*self._rerank(q, s, i), flag)
+
+    def _scan_sq8_exact(self, q: torch.Tensor, k: int, eps_mode: str):
+        st, kp = self._quant, self.keeper
+        return knn_scan_sq8(q, st.codes, st.lo, st.alpha, st.err_dims,
+                            st.ms_dims, kp.sq_eff(), kp.data, k, self.metric,
+                            eps_mode)
+
+    def _dispatch_scan(self, q: torch.Tensor, k: int):
+        """(scores, ids, flag) on the device; flag is None when a plain
+        scan ran (it cannot overflow)."""
+        if self._quant_active():
+            if self._quant_mode != "exact":
+                return self._scan_approx(q, k)
+            if k + MARGIN <= S_SLOTS:
+                return self._scan_sq8_exact(q, k, self._sq8_mode)
+            geometry_scans.add()
+        elif k > S_SLOTS:
+            geometry_scans.add()
+        return self._scan_fp32(q, k)
+
+    def _overflow_rerun(self, q: torch.Tensor, k: int,
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Host (scores, ids) for a batch whose first scan flagged, one rung
+        down its ladder at a time."""
+
+        def flagged(flag) -> bool:
+            return flag is not None and bool((flag > 0).any())
+
+        if self._quant_active() and self._quant_mode != "exact":
+            approx_reruns.add()
+            st, sq_eff = self._quant, self.keeper.sq_eff()
+            s, i, flag = knn_scan_fused_sq8(q, st.codes, st.lo, st.alpha,
+                                            sq_eff, k, self.metric)
+            if flagged(flag):
+                s, i = self._scan_quantized_plain(q, k)
+            s, i = self._rerank(q, s, i)
+            return s.cpu().numpy(), i.cpu().numpy()
+        if self._quant_active() and k + MARGIN <= S_SLOTS:
+            if self._sq8_mode == "cert":
+                sq8_cert_overflows.add()
+                self._sq8_mode = "fast"
+                s, i, flag = self._scan_sq8_exact(q, k, "fast")
+                if not flagged(flag):
+                    return s.cpu().numpy(), i.cpu().numpy()
+            sq8_fast_overflows.add()
+            s, i, flag = self._scan_fp32(q, k)
+            if not flagged(flag):
+                return s.cpu().numpy(), i.cpu().numpy()
+        overflow_reruns.add()
+        s, i = self._scan_plain(q, k)
+        return s.cpu().numpy(), i.cpu().numpy()
 
     def select_batch_async(self, queries: np.ndarray,
                            params: KnnSearchParams):
@@ -65,6 +205,7 @@ class BruteForceIndex(FloatVectorIndexBase):
         if kp.count == 0 or params.k is None:
             res = super().select_batch(queries, params)
             return lambda: res
+        self._maybe_quantize()
         q = np.stack([kp.prepare_query(v) for v in queries])
         k = min(params.k, kp.capacity)
         qd = torch.from_numpy(q).to(kp.device)
@@ -80,9 +221,7 @@ class BruteForceIndex(FloatVectorIndexBase):
             s = host[:n].view(np.float32).reshape(-1, k)
             i = host[n:2 * n].reshape(-1, k)
             if flag is not None and (host[2 * n:].view(np.float32) > 0).any():
-                overflow_reruns.add()
-                s_d, i_d = self._scan_plain(qd, k)
-                s, i = s_d.cpu().numpy(), i_d.cpu().numpy()
+                s, i = self._overflow_rerun(qd, k)
             out = []
             for b in range(len(queries)):
                 keep = i[b] >= 0
@@ -111,7 +250,8 @@ class BruteForceIndex(FloatVectorIndexBase):
                 np.asarray(query, dtype=np.float32)[None, :], params)
             return lambda: drain()[0]
 
-        # radius-only search: full scan, filter on host
+        # radius-only search: full fp32 scan, filter on host
+        self._maybe_quantize()
         q = torch.from_numpy(kp.prepare_query(query)[None, :]).to(kp.device)
         sq_eff = kp.sq_eff()
         scores_d = pairwise_scores(q, kp.data, sq_eff < SQ_EFF_BIG / 2,

@@ -1,10 +1,11 @@
 """Builds and loads the port's CUDA kernels (route: nvcc into a shared
 library with a plain C interface, loaded with ctypes).
 
-Each kernel is one source file under `reindexer_tpu_torch/csrc/`. At its
-first use in a process, `load(name)` compiles `csrc/<name>.cu` with nvcc for
-Hopper (`sm_90a`) into `build/reindexer_tpu_torch/` at the repository root,
-named by a hash of the source and the flags, so an edited source rebuilds and
+Each kernel is one source file under `reindexer_tpu_torch/csrc/`, which may
+include the shared headers (`csrc/*.cuh`). At its first use in a process,
+`load(name)` compiles `csrc/<name>.cu` with nvcc for Hopper (`sm_90a`) into
+`build/reindexer_tpu_torch/` at the repository root, named by a hash of the
+source, the headers and the flags, so an edited source or header rebuilds and
 an unchanged one loads the library already built. Nothing here runs at import
 time: the CPU tests import every module on a machine without nvcc.
 """
@@ -30,12 +31,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCH_ARGTYPES = {
     "bf_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "bf_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sq8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sq8_i8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sq8_select": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> (seconds spent compiling, 0.0 when loaded from the cache; the
-# compiler's output, which holds ptxas's registers and shared memory)
+# name -> (seconds from nvcc's start to its end, 0.0 when loaded from the
+# cache; the compiler's output, which holds ptxas's registers and shared
+# memory)
 build_info: dict[str, tuple[float, str]] = {}
 
 
@@ -73,45 +78,63 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of kernel `name` is built: keyed by the hash of
-    its source and the compiler flags."""
+    its source, the shared headers and the compiler flags."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, compiling it first if needed."""
+    return load_all([name])[0]
+
+
+def load_all(names: list[str]) -> list[ctypes.CDLL]:
+    """The loaded libraries of `names`. Those not built yet compile at once,
+    one nvcc process per source, all started together."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        so = library_path(name)
-        if not so.exists():
+        jobs = {}
+        for name in names:
+            if name in _libs or name in jobs:
+                continue
+            so = library_path(name)
+            if so.exists():
+                build_info.setdefault(name, (0.0, ""))
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                  str(CSRC_DIR / f"{name}.cu")],
-                capture_output=True, text=True)
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (so, tmp, proc, time.perf_counter())
+        failed = []
+        for name, (so, tmp, proc, t0) in jobs.items():
+            out = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu:\n"
-                                   f"{proc.stdout}{proc.stderr}")
+                failed.append(f"nvcc failed on {name}.cu:\n{out}")
+                continue
             os.replace(tmp, so)
-            build_info[name] = (time.perf_counter() - t0,
-                                proc.stdout + proc.stderr)
-        else:
-            build_info.setdefault(name, (0.0, ""))
-        lib = ctypes.CDLL(str(so))
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = _LAUNCH_ARGTYPES[name]
-        launch.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
-        return lib
+            build_info[name] = (time.perf_counter() - t0, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = _bind(name, ctypes.CDLL(str(library_path(name))))
+        return [_libs[name] for name in names]
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _LAUNCH_ARGTYPES[name]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
 
 
 def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:

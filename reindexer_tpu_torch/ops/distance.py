@@ -56,13 +56,25 @@ def knn_scan(queries: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
     one matmul and its top-k merged into the running top-k, so the [Q, N]
     score matrix is never whole."""
     q = queries.to(torch.float32)
+    return chunked_topk(
+        base.shape[0], q, k, chunk,
+        lambda rows: _chunk_scores(q, base[rows], base_sq[rows], metric),
+        valid)
+
+
+def chunked_topk(n: int, q: torch.Tensor, k: int, chunk: int, scores_of,
+                 valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked top-k loop of knn_scan over n rows: scores_of(rows) ->
+    f32[Q, len(rows)] scores a slice of rows, valid bool[n] masks them, and
+    each chunk's top-k merges into the running top-k. Returns (scores
+    f32[Q, k], ids i32[Q, k]), best first, -inf / -1 padded."""
     n_q = q.shape[0]
     best_s = torch.full((n_q, k), float("-inf"), dtype=torch.float32,
                         device=q.device)
     best_i = torch.full((n_q, k), -1, dtype=torch.int64, device=q.device)
-    for start in range(0, base.shape[0], chunk):
-        end = min(start + chunk, base.shape[0])
-        s = _chunk_scores(q, base[start:end], base_sq[start:end], metric)
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        s = scores_of(slice(start, end))
         s = s.masked_fill(~valid[None, start:end], float("-inf"))
         loc_s, loc_i = torch.topk(s, min(k, end - start), dim=1)
         merged_s = torch.cat([best_s, loc_s], dim=1)

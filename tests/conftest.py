@@ -24,6 +24,9 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips without one")
+    config.addinivalue_line(
+        "markers", "reference_divergence: documents a deliberate difference "
+        "of reindexer_tpu_torch from the JAX reference (ROADMAP C)")
 
 
 @pytest.fixture

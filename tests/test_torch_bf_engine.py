@@ -285,7 +285,9 @@ def test_dims_mismatch_raises():
     IndexDef("t", "text", "string"),
     IndexDef("a", "vec_bf", opts=IndexOpts(is_array=True),
              vector_opts=FloatVectorOpts(dims=4)),
-    IndexDef("q", "vec_bf", vector_opts=FloatVectorOpts(
+    # SQ8 is ported for vec_bf (tests/test_torch_sq8.py); the SQ8 graph of
+    # an HNSW index is not
+    IndexDef("q", "hnsw", vector_opts=FloatVectorOpts(
         dims=4, quantization=QuantizationConfig(enabled=True))),
 ], ids=["hnsw", "ivf", "text", "array", "sq8"])
 def test_not_ported_indexes_raise(idef):

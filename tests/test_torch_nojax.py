@@ -2,9 +2,10 @@
 
 The check runs in a subprocess, so it never disturbs this worker's modules
 (the JAX package's tests share it). The child blocks JAX through a
-sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar namespace
-and a vec_bf namespace on the CPU, checks that the engines not ported yet
-raise NotImplementedError, and that no JAX module got loaded.
+sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar namespace,
+a vec_bf namespace and an SQ8 vec_bf namespace (all three modes) on the CPU,
+checks that the engines not ported yet raise NotImplementedError, and that
+no JAX module got loaded.
 """
 import os
 import subprocess
@@ -50,6 +51,24 @@ want = np.argsort(((base - base[7]) ** 2).sum(1))[:3].tolist()
 assert [d["id"] for d in res.docs()] == want, (res.docs(), want)
 out = db.knn_batch("vecs", "v", base[:2], KnnSearchParams(k=2))
 assert [r.docs()[0]["id"] for r in out] == [0, 1]
+
+import reindexer_tpu_torch.index.vector.quantization
+import reindexer_tpu_torch.ops.hnsw_kernels
+from reindexer_tpu_torch import QuantizationConfig
+from reindexer_tpu_torch.ops import scan, select
+assert callable(scan.sq8_scan) and callable(scan.sq8_i8_scan)
+assert callable(select.sq8_select) and callable(select.knn_scan_sq8)
+modes = ("exact", "approx", "approx_rerank")
+db.open_namespace("sq8", [
+    IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True))] + [
+    IndexDef(m, "vec_bf", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, quantization=QuantizationConfig(
+            enabled=True, min_elements=16, mode=m))) for m in modes])
+for i in range(50):
+    db.upsert("sq8", {"id": i, **{m: base[i].tolist() for m in modes}})
+for m in modes:
+    res = db.select(Query("sq8").where_knn(m, base[7], KnnSearchParams(k=3)))
+    assert [d["id"] for d in res.docs()][0] == 7, (m, res.docs())
 
 for kind in ("hnsw", "ivf"):
     try:

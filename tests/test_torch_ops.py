@@ -87,6 +87,39 @@ def test_bf_scan_plain_matches_pass1(metric):
 
 
 @pytest.mark.parametrize("metric", METRICS)
+def test_bf_scan_plain_matches_pass1_ps(metric):
+    """K1's S covers pallas_scan._pass1_ps (partial scores only, validity in
+    sq_eff alone): invalid rows keep their data here, as in the port's
+    keeper, and both sides score them at or below -5e29. The top-k of
+    knn_scan_fused_single (its wrapper) equals K1 + K2's."""
+    jnp, _, pallas_scan, _ = _ref()
+    rng = np.random.default_rng(16)
+    base = rng.normal(size=(N, D)).astype(np.float32)
+    q = rng.normal(size=(8, D)).astype(np.float32)
+    sq = ((base * base).sum(1) if metric == VectorMetric.L2
+          else np.zeros(N)).astype(np.float32)
+    sq[INVALID] = SQ_EFF_BIG
+    valid = sq < SQ_EFF_BIG / 2
+    ps = np.asarray(pallas_scan._pass1_ps(
+        jnp.asarray(q), jnp.asarray(base), jnp.asarray(sq)[None, :],
+        pallas_scan.TILE, metric, interpret=True))
+    s, _ = bf_scan_plain(*_t(q, base, sq), metric)
+    s = s.numpy()
+    np.testing.assert_allclose(s[:, valid], ps[:, valid], rtol=RTOL,
+                               atol=ATOL)
+    assert (s[:, ~valid] <= scan.SENT_HALF).all()
+    assert (ps[:, ~valid] <= scan.SENT_HALF).all()
+    k = 20
+    s_r, i_r = pallas_scan.knn_scan_fused_single(
+        jnp.asarray(q), jnp.asarray(base), jnp.asarray(sq), k, metric,
+        interpret=True)
+    s_p, i_p, flag = knn_scan_fused(*_t(q, base, sq), k, metric)
+    assert float(flag.max()) == 0.0
+    _assert_same_topk(s_p, i_p, s_r, i_r)
+    assert not np.isin(i_p.numpy(), INVALID).any()
+
+
+@pytest.mark.parametrize("metric", METRICS)
 def test_knn_scan_fused_matches_v3(metric):
     jnp, _, _, pallas_select = _ref()
     q, base, sq = _inputs(2, 8, metric)
