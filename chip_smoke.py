@@ -4,8 +4,9 @@
 
 Phases, in order; any failure raises, so the exit code is not 0:
   0. identity: the card's name and power limit (nvidia-smi), torch, CUDA;
-  1. build: the five kernels (K1 bf_scan, K2 bf_select, K3 sq8_scan, K4
-     sq8_select, K5 sq8_i8_scan) with nvcc from csrc/, one nvcc per source,
+  1. build: the six kernels (K1 bf_scan, K2 bf_select, K3 sq8_scan, K4
+     sq8_select, K5 sq8_i8_scan, K6 ivf_seg_scan) with nvcc from csrc/, one
+     nvcc per source,
      all started together, timed, with ptxas's registers and spills;
   2. K1/K2 vs their plain PyTorch versions on the card at the main path's
      shapes (131072 x 128, 64 queries, k=100, L2 and IP, with invalid rows)
@@ -29,6 +30,30 @@ Phases, in order; any failure raises, so the exit code is not 0:
      recalls >= 0.9 of the oracle's top-100; approx_rerank ranks are the
      exact distances. The launch counts and the ladder's counters of each
      field's run are printed, and K3, K4 and K5 must each have launched;
+  6. IVF set-up, BASELINE config #3: 1,000,000 x 768 cosine, 1,024 lists,
+     clustered rows made as bench.py's IVF leg makes them (seed 12), loaded
+     as it loads them (keeper.bulk_load with the bf16 upload, _grow,
+     _train); every row's list checked against its float64-nearest
+     centroid;
+  7. K6 ivf_seg_scan vs its plain version on the card, on the segment plans
+     of that index at batch 1 x nprobe 8 and batch 16 x nprobe 128 (ragged
+     last blocks and count-0 padding segments), in cosine and in L2, within
+     K6_ULPS fp32 ulps of the summed magnitude, with times;
+  8. the IVF main path on that index: 16 queries, k=100, nprobe 8 to 128,
+     select_batch and single select, the segment route forced, the masked
+     sweep forced and the router's choice. Ids equal a float64 oracle over
+     the rows of the query's probed lists (near-ties aside), from the stored
+     vectors; recall@100 against the full float64 oracle may not fall as
+     nprobe grows. Then both stage-2 routes are timed at batch 1 to 256 at
+     each nprobe, with device time and idle share (the router table,
+     PERF.md);
+  9. the IVF public API: a 100,000 x 128 cosine IVF namespace with 1,024
+     lists filled by db.upsert, 1,000 deletes; 64 db.select, knn_batch of
+     16 at nprobe 8 and 128, one SQL KNN(..., nprobe=8), the
+     rebuild_ivf_index action and a select after it, each against the
+     probed-set oracle (the list assignment checked as in 6). K6 must have
+     launched on the IVF paths; then host ms, device ms and idle share of
+     knn_batch(16) and select;
 then one JSON line for the kernels and, last, the result line.
 There is no CPU path: without CUDA the script exits non-zero.
 """
@@ -62,6 +87,15 @@ APPROX_TIE_RTOL = 1e-5            # K5 is bit-equal to its plain version;
 #                                   K3's fp32 sums round in another order
 APPROX_MIN_RECALL = 0.9
 CLUSTER_ROWS = 7168               # rows per cluster: 112 blocks of 64
+IVF_N, IVF_D, IVF_NLIST, IVF_BATCH = 1_000_000, 768, 1024, 16
+IVF_NPROBES = (8, 16, 32, 64, 128)
+IVF_API_DOCS, IVF_API_D = 100_000, 128
+IVF_RANK_ATOL = 1e-5              # cosine similarities of unit vectors
+IVF_ROUTES = {"segments": "1", "sweep": "0", "router": None}
+IVF_ROUTE_BATCHES = (1, 16, 32, 64, 128, 256)   # the router table, PERF.md
+K6_ULPS = 8       # K6 vs its plain version: fp32 ulps of sum |q_d b_d|;
+#                   a bf16 or TF32 rounding of an operand is ~1e3x more
+ASSIGN_TIE_RTOL = 1e-5            # f32 argmax vs f64 argmax near-ties
 
 
 def log(msg: str) -> None:
@@ -110,7 +144,8 @@ def phase_identity() -> tuple[str, str]:
     return card, torch.cuda.get_device_name(0)
 
 
-KERNELS = ("bf_scan", "bf_select", "sq8_scan", "sq8_select", "sq8_i8_scan")
+KERNELS = ("bf_scan", "bf_select", "sq8_scan", "sq8_select", "sq8_i8_scan",
+           "ivf_seg_scan")
 
 
 def phase_build() -> None:
@@ -637,8 +672,8 @@ def phase_sq8_main_path(card: str, dev) -> dict:
                                                    cqueries)]
     for ns, field, qs in runs:
         results, qps, counts = run_field(db, ns, field, qs)
-        for name in KERNELS:
-            launches[name] += counts[name]
+        for name in launches:
+            launches[name] += counts.get(name, 0)
         tag = f"{ns}.{field}"
         if field == "exact":
             for name, res in results.items():
@@ -664,6 +699,433 @@ def phase_sq8_main_path(card: str, dev) -> dict:
     return launches
 
 
+def set_env(name: str, value) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def ivf_counters() -> dict:
+    from reindexer_tpu_torch.index.vector import ivf
+    from reindexer_tpu_torch.ops import ivf_kernels
+    return {"ivf_seg_scan": ivf_kernels.seg_scan_launches,
+            "segment_scans": ivf.segment_scans,
+            "masked_sweeps": ivf.masked_sweeps,
+            "gather_scans": ivf.gather_scans}
+
+
+def make_ivf_data(n: int, d: int, n_q: int):
+    """bench.py's IVF data (bench_ivf1m): 1,024 gaussian centers, rows at
+    sigma 0.35 around them, isotropic queries; seed 12."""
+    rng = np.random.default_rng(12)
+    centers = rng.normal(size=(1024, d)).astype(np.float32)
+    assign = rng.integers(0, 1024, size=n)
+    base = (centers[assign] + 0.35 * rng.normal(size=(n, d))).astype(
+        np.float32)
+    return base, rng.normal(size=(n_q, d)).astype(np.float32)
+
+
+def phase_ivf_setup(dev):
+    """BASELINE config #3 loaded as bench.py loads it. Returns (index,
+    prepared queries)."""
+    from reindexer_tpu_torch import FloatVectorOpts, IndexDef, VectorMetric
+    from reindexer_tpu_torch.index.vector.ivf import IvfIndex
+    t0 = time.perf_counter()
+    base, queries = make_ivf_data(IVF_N, IVF_D, max(IVF_ROUTE_BATCHES))
+    t1 = time.perf_counter()
+    ix = IvfIndex(IndexDef("vec", "ivf", vector_opts=FloatVectorOpts(
+        dims=IVF_D, metric=VectorMetric.COSINE, centroids_count=IVF_NLIST)),
+        dev)
+    ix.keeper.bulk_load(base)
+    del base
+    ix._grow(IVF_N)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ix._train()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ix._rebuild_csr()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    log(f"[ivf setup] {IVF_N} x {IVF_D} cosine, {IVF_NLIST} lists: data "
+        f"{t1 - t0:.1f} s (host), bulk_load (bf16) {t2 - t1:.1f} s, train + "
+        f"assign {t3 - t2:.2f} s, list-contiguous reorder {t4 - t3:.2f} s "
+        f"({ix._d_reordered.shape[0]} rows, {len(ix._list_rows)} in lists)")
+    check_assign(ix, "ivf setup")
+    q = np.stack([ix.keeper.prepare_query(v) for v in queries])
+    return ix, q
+
+
+def check_assign(ix, tag: str) -> None:
+    """The on-card list assignment against a float64 recomputation from the
+    centroids: every valid row sits in the list of its nearest centroid
+    (the metric's argmax), up to near-ties. The probed-set oracle reads the
+    assignment, so this keeps a fault there from moving the oracle along."""
+    from reindexer_tpu_torch import VectorMetric
+    kp = ix.keeper
+    c64 = ix.centroids.double()
+    rows = np.flatnonzero(kp.valid)
+    assign = ix._assign[rows].astype(np.int64)
+    if (assign < 0).any():
+        raise AssertionError(f"{tag}: {int((assign < 0).sum())} valid rows "
+                             "are in no list")
+    rows_d = torch.from_numpy(rows).to(kp.device)
+    assign_d = torch.from_numpy(assign).to(kp.device)
+    off = 0
+    for lo in range(0, len(rows), 65536):
+        s = kp.data[rows_d[lo:lo + 65536]].double() @ c64.T
+        if ix.metric == VectorMetric.L2:
+            s = 2.0 * s - (c64 * c64).sum(dim=1)[None, :]
+        best = s.max(dim=1).values
+        got = s.gather(1, assign_d[lo:lo + 65536, None])[:, 0]
+        off += int((best - got > ASSIGN_TIE_RTOL
+                    * best.abs().clamp_min(1.0)).sum())
+    if off:
+        raise AssertionError(f"{tag}: {off} of {len(rows)} rows are not in "
+                             "the list of their float64-nearest centroid")
+    log(f"[{tag}] all {len(rows)} rows sit in the list of their "
+        "float64-nearest centroid (ties within 1e-5)")
+
+
+def k6_bound(starts, qids, counts, qd, reordered, metric) -> torch.Tensor:
+    """K6_ULPS fp32 ulps of the magnitude a score is summed from: sum |q_d
+    b_d| (IP, cosine) or 2 sum |q_d b_d| + |b|^2 (L2); 0 on rows past
+    counts, where both versions write the same sentinel."""
+    from reindexer_tpu_torch import VectorMetric
+    from reindexer_tpu_torch.ops.ivf_kernels import scan_segments_plain
+    mag = scan_segments_plain(starts, qids, counts, qd.abs(),
+                              reordered.abs(), VectorMetric.INNER_PRODUCT)
+    if metric == VectorMetric.L2:
+        mag = 2.0 * mag - scan_segments_plain(
+            starts, qids, counts, torch.zeros_like(qd), reordered, metric)
+    return K6_ULPS * torch.finfo(torch.float32).eps * mag.clamp_min(0.0)
+
+
+def phase_ivf_kernel(ix, q, dev) -> dict:
+    """K6 against its plain version on the index's own segment plans, in
+    the index's metric (cosine) and in L2 on the same reorder."""
+    from reindexer_tpu_torch import VectorMetric
+    from reindexer_tpu_torch.ops.ivf_kernels import (SEG_BLK, scan_segments,
+                                                     scan_segments_plain)
+    stats = {"max_abs_err": 0.0}
+    for n_b, nprobe in ((1, 8), (IVF_BATCH, 128)):
+        probes = ix._probe_host(q[:n_b], nprobe)
+        starts, qids, counts = ix._segment_plan(probes)
+        qd = torch.from_numpy(q[:n_b]).to(dev)
+        args = (starts, qids, counts, qd, ix._d_reordered, ix.metric)
+        for metric in (ix.metric, VectorMetric.L2):
+            m_args = args[:5] + (metric,)
+            got = scan_segments(*m_args)
+            want = scan_segments_plain(*m_args)
+            diff = (got - want).abs()
+            worst = float((diff / k6_bound(*m_args).clamp_min(1e-30)).max())
+            err = float(diff.max())
+            log(f"[ivf kernel] batch {n_b} x nprobe {nprobe}, {metric.name}: "
+                f"K6 err {err:.3g}, {worst * K6_ULPS:.3f} ulps of the "
+                f"summed magnitude at worst (bound {K6_ULPS})")
+            if worst > 1.0:
+                raise AssertionError(
+                    f"K6 disagrees with its plain version at batch {n_b} x "
+                    f"nprobe {nprobe} ({metric.name}) by more than {K6_ULPS} "
+                    "fp32 ulps of the summed magnitude")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            del got, want, diff
+        c = counts.cpu().numpy()
+        ragged, padding = int(((c > 0) & (c < SEG_BLK)).sum()), int(
+            (c == 0).sum())
+        if not ragged or not padding:
+            raise AssertionError("the segment plan has no ragged or no "
+                                 "padding segment")
+        ms = cuda_time_ms(lambda: scan_segments(*args))
+        plain_ms = cuda_time_ms(lambda: scan_segments_plain(*args), reps=5,
+                                burst=2)
+        gb = float(c.sum()) * IVF_D * 4 / 1e9
+        log(f"[ivf kernel] batch {n_b} x nprobe {nprobe}: {len(c)} segments "
+            f"({ragged} ragged, {padding} padding), {gb:.4f} GB read; K6 ms "
+            f"{ms:.4f} ({gb / ms:.1f} TB/s) (plain {plain_ms:.4f})")
+        stats.update(ms=ms, plain_ms=plain_ms)
+    return stats
+
+
+def probed_scores(ix, s64: torch.Tensor, probes: np.ndarray) -> torch.Tensor:
+    """s64 f64[B, cap] (-inf on invalid rows) with -inf outside each
+    query's probed lists."""
+    dev = s64.device
+    n_b = probes.shape[0]
+    psel = torch.zeros((n_b, ix.centroids.shape[0]), dtype=torch.bool,
+                       device=dev)
+    psel[torch.arange(n_b, device=dev)[:, None],
+         torch.from_numpy(probes.astype(np.int64)).to(dev)] = True
+    a = torch.from_numpy(ix._assign[: s64.shape[1]].astype(np.int64)).to(dev)
+    member = psel[:, a.clamp_min(0)] & (a >= 0)[None, :]
+    return s64.masked_fill(~member, float("-inf"))
+
+
+def oracle_s64(ix, q: np.ndarray) -> torch.Tensor:
+    """float64 scores (cosine: q . b) of q against the keeper's stored rows,
+    on the card, -inf on invalid rows."""
+    kp = ix.keeper
+    qd = torch.from_numpy(q).to(kp.device).double()
+    s = torch.empty((len(q), kp.capacity), dtype=torch.float64,
+                    device=kp.device)
+    for lo in range(0, kp.capacity, 262144):
+        s[:, lo:lo + 262144] = qd @ kp.data[lo:lo + 262144].double().T
+    valid = torch.from_numpy(kp.valid).to(kp.device)
+    return s.masked_fill(~valid[None, :], float("-inf"))
+
+
+def check_ivf(results, masked: torch.Tensor, tag: str) -> None:
+    """results: (ids, ranks) per query (cosine: rank = similarity), against
+    masked f64[B, cap], the oracle's scores of the probed rows."""
+    top_s, top_i = torch.topk(masked, K, dim=1)
+    top_s, top_i = top_s.cpu().numpy(), top_i.cpu().numpy()
+    for qi, (ids, ranks) in enumerate(results):
+        if len(ids) != K:
+            raise AssertionError(f"{tag}: query {qi} got {len(ids)} ids")
+        got = masked[qi, torch.as_tensor(ids, device=masked.device)]
+        got = got.cpu().numpy()
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{tag}: query {qi} returned a row outside "
+                                 "its probed lists or a deleted row")
+        score = dict(zip(top_i[qi].tolist(), top_s[qi].tolist()))
+        score.update(zip(ids, got.tolist()))
+        if tie_violations(ids, top_i[qi].tolist(), lambda i: score[i],
+                          float(top_s[qi, -1]), TIE_RTOL):
+            raise AssertionError(f"{tag}: query {qi} ids disagree with the "
+                                 "probed-set float64 oracle beyond ties")
+        if not np.allclose(ranks, got, rtol=RANK_RTOL, atol=IVF_RANK_ATOL):
+            raise AssertionError(f"{tag}: query {qi} ranks off by "
+                                 f"{np.abs(np.asarray(ranks) - got).max()}")
+
+
+def ids_ranks(res) -> tuple[list, np.ndarray]:
+    return res.ids.tolist(), np.asarray(res.ranks)
+
+
+def phase_ivf_main(card: str, ix, q) -> int:
+    """The IVF main path on config #3. Returns K6's launches over it."""
+    from reindexer_tpu_torch import IvfSearchParams
+    counters = ivf_counters()
+    for c in counters.values():
+        c.reset()
+    results = {}
+    t0 = time.perf_counter()
+    for route, env in IVF_ROUTES.items():
+        set_env("RX_IVF_SEGMENTS", env)
+        for nprobe in IVF_NPROBES:
+            p = IvfSearchParams(k=K, nprobe=nprobe)
+            results[route, "select_batch", nprobe] = [
+                ids_ranks(r) for r in ix.select_batch(q, p)]
+            results[route, "select", nprobe] = [
+                ids_ranks(ix.select(v, p)) for v in q]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    set_env("RX_IVF_SEGMENTS", None)
+    counts = {name: c.value for name, c in counters.items()}
+    log(f"[ivf main] 3 routes x {len(IVF_NPROBES)} nprobe x (select_batch of "
+        f"{IVF_BATCH} + {IVF_BATCH} selects) in {secs:.1f} s; counts: "
+        + ", ".join(f"{n} {v}" for n, v in counts.items()))
+    s64 = oracle_s64(ix, q)
+    full = torch.topk(s64, K, dim=1).indices.cpu().numpy()
+    prev = -1.0
+    for nprobe in IVF_NPROBES:
+        npb = min(nprobe, IVF_NLIST)
+        masked = {"select_batch": probed_scores(ix, s64, ix._probe_host(
+            q, npb))}
+        single = np.concatenate([ix._probe_host(q[b:b + 1], npb)
+                                 for b in range(len(q))])
+        masked["select"] = probed_scores(ix, s64, single)
+        recall = {}
+        for (route, entry, np_), res in results.items():
+            if np_ != nprobe:
+                continue
+            check_ivf(res, masked[entry], f"ivf {route} {entry} "
+                      f"nprobe={nprobe}")
+            recall[route, entry] = np.mean([
+                len(set(ids) & set(full[b].tolist())) / K
+                for b, (ids, _) in enumerate(res)])
+        r = recall["router", "select_batch"]
+        log(f"[ivf main] nprobe={nprobe}: every route and entry point "
+            f"matches the probed-set float64 oracle; recall@{K} vs the full "
+            f"oracle {r:.4f} (" + ", ".join(
+                f"{a}/{b} {v:.4f}" for (a, b), v in recall.items()) + ")")
+        if r < prev:
+            raise AssertionError(f"recall@{K} fell from {prev:.4f} to "
+                                 f"{r:.4f} at nprobe={nprobe}")
+        prev = r
+        del masked
+    del s64
+    if counts["ivf_seg_scan"] == 0 or counts["masked_sweeps"] == 0:
+        raise AssertionError("the IVF main path did not run both routes")
+    return counts["ivf_seg_scan"]
+
+
+def device_profile(fn, n: int = 5) -> tuple[float, float, str]:
+    """torch.profiler over n calls of fn: (device ms per call, idle share
+    of the wall time, the three largest device items)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.key[:40]] = per.get(ev.key[:40], 0.0) + dt / 1e3 / n
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return busy, 1.0 - busy * n / wall_ms, "; ".join(
+        f"{k} {v:.4f}" for k, v in top)
+
+
+def phase_ivf_routes(card: str, ix, q) -> None:
+    """Both stage-2 routes timed at every batch of IVF_ROUTE_BATCHES and
+    every nprobe (CUDA events around bursts of _stage2 calls, host work
+    included), the rows each reads, the whole select_batch on the host
+    clock, and the route the router takes; at nprobe 8 and 128 also the
+    device time and idle share of select_batch per route (torch.profiler)."""
+    from reindexer_tpu_torch import IvfSearchParams
+    from reindexer_tpu_torch.ops.ivf_kernels import SEG_BLK
+    counters = ivf_counters()
+    dev = ix.keeper.device
+    log(f"[ivf routes] capacity {ix.keeper.capacity}, reorder "
+        f"{ix._d_reordered.shape[0]} rows; {card}")
+    for n_b in IVF_ROUTE_BATCHES:
+        qd = torch.from_numpy(q[:n_b]).to(dev)
+        for nprobe in IVF_NPROBES:
+            seg_rows = int(ix._seg_blocks[ix._probe_host(q[:n_b], nprobe)]
+                           .sum()) * SEG_BLK
+            p = IvfSearchParams(k=K, nprobe=nprobe)
+            row, prof = {}, []
+            for route in ("segments", "sweep"):
+                set_env("RX_IVF_SEGMENTS", IVF_ROUTES[route])
+                row[route] = cuda_time_ms(
+                    lambda: ix._stage2(qd, nprobe, K, q[:n_b]), reps=10,
+                    burst=5)
+                secs = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    ix.select_batch(q[:n_b], p)
+                    secs.append(time.perf_counter() - t0)
+                row[route + "_host"] = 1e3 * statistics.median(secs)
+                if nprobe in (8, 128):
+                    busy, idle, top = device_profile(
+                        lambda: ix.select_batch(q[:n_b], p))
+                    prof.append(f"{route}: device {busy:.4f} ms, idle share "
+                                f"{idle:.4f} ({top})")
+            set_env("RX_IVF_SEGMENTS", None)
+            for c in counters.values():
+                c.reset()
+            ix.select_batch(q[:n_b], p)
+            chosen = "segments" if counters["segment_scans"].value else \
+                "sweep"
+            log(f"[ivf routes] batch {n_b} nprobe {nprobe}: seg_rows "
+                f"{seg_rows}; stage 2 ms segments {row['segments']:.4f}, "
+                f"sweep {row['sweep']:.4f}; select_batch host ms segments "
+                f"{row['segments_host']:.3f}, sweep {row['sweep_host']:.3f}"
+                f"; router takes {chosen}")
+            for line in prof:
+                log(f"[ivf routes]     {line}")
+
+
+def phase_ivf_api(card: str, dev) -> int:
+    """The IVF public API at 100k x 128. Returns K6's launches over it."""
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     IvfSearchParams, Query, Reindexer,
+                                     VectorMetric)
+    base, queries = make_ivf_data(IVF_API_DOCS, IVF_API_D, 64)
+    deleted = np.random.default_rng(SEED + 4).choice(
+        IVF_API_DOCS, size=DELETES, replace=False)
+    t0 = time.perf_counter()
+    db = Reindexer(device=dev)
+    db.open_namespace("ivf", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        IndexDef("vec", "ivf", vector_opts=FloatVectorOpts(
+            dims=IVF_API_D, metric=VectorMetric.COSINE,
+            centroids_count=IVF_NLIST))])
+    rows = base.tolist()
+    for i in range(IVF_API_DOCS):
+        db.upsert("ivf", {"id": i, "vec": rows[i]})
+    for i in deleted.tolist():
+        db.delete("ivf", {"id": i})
+    log(f"[ivf api] set-up: {IVF_API_DOCS} upserts + {DELETES} deletes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ix = db.get_namespace("ivf").get_index("vec")
+    counters = ivf_counters()
+    for c in counters.values():
+        c.reset()
+
+    def knn(qv, nprobe):
+        return Query("ivf").where_knn("vec", qv, IvfSearchParams(
+            k=K, nprobe=nprobe))
+
+    def docs(res):
+        return [d["id"] for d in res.docs()], np.asarray(res.ranks())
+
+    t0 = time.perf_counter()
+    db.select(knn(queries[0], 8))          # trains, assigns, reorders
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [docs(db.select(knn(v, 8))) for v in queries]
+    qps = len(queries) / (time.perf_counter() - t0)
+    batches = {nprobe: [docs(r) for r in db.knn_batch(
+        "ivf", "vec", queries[:16], IvfSearchParams(k=K, nprobe=nprobe))]
+        for nprobe in (8, 128)}
+    vec = ", ".join(repr(float(x)) for x in queries[1])
+    sql = [docs(db.select(f"SELECT * FROM ivf WHERE KNN(vec, [{vec}], "
+                          f"k={K}, nprobe=8)"))]
+    cent = ix.centroids
+    check_assign(ix, "ivf api")
+    q = np.stack([ix.keeper.prepare_query(v) for v in queries])
+    s64 = oracle_s64(ix, q)
+    one = [ix._probe_host(q[b:b + 1], 8) for b in range(len(q))]
+    check_ivf(single, probed_scores(ix, s64, np.concatenate(one)),
+              "ivf api select")
+    check_ivf(sql, probed_scores(ix, s64[1:2], one[1]), "ivf api SQL")
+    for nprobe, res in batches.items():
+        check_ivf(res, probed_scores(ix, s64[:16], ix._probe_host(
+            q[:16], nprobe)), f"ivf api knn_batch(16) nprobe={nprobe}")
+    db.upsert("#config", {"type": "action", "action": {
+        "command": "rebuild_ivf_index", "namespace": "ivf", "index": "vec"}})
+    if ix.centroids is cent:
+        raise AssertionError("rebuild_ivf_index did not retrain")
+    check_assign(ix, "ivf api after rebuild_ivf_index")
+    after = [docs(db.select(knn(queries[2], 8)))]
+    check_ivf(after, probed_scores(ix, s64[2:3], ix._probe_host(
+        q[2:3], 8)), "ivf api select after rebuild_ivf_index")
+    torch.cuda.synchronize()
+    counts = {name: c.value for name, c in counters.items()}
+    log(f"[ivf api] 64 selects, knn_batch(16) at nprobe 8 and 128, SQL KNN, "
+        f"rebuild_ivf_index + select: match the probed-set float64 oracle "
+        f"(ids up to ties, ranks rtol 1e-4); first select (train + reorder) "
+        f"{t_first:.2f} s, select {qps:.1f} qps on {card} (host clock); "
+        "counts: " + ", ".join(f"{n} {v}" for n, v in counts.items()))
+    if counts["ivf_seg_scan"] == 0:
+        raise AssertionError("the IVF public-API path did not launch K6")
+    p8 = IvfSearchParams(k=K, nprobe=8)
+    for tag, fn in (("knn_batch(16)", lambda: db.knn_batch(
+            "ivf", "vec", queries[:16], p8)),
+            ("select", lambda: db.select(knn(queries[0], 8)))):
+        fn()
+        secs = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        busy, idle, top = device_profile(fn)
+        log(f"[ivf api] {tag} nprobe 8 (router): host "
+            f"{1e3 * statistics.median(secs):.3f} ms, device {busy:.4f} ms, "
+            f"idle share {idle:.4f} ({top})")
+    return counts["ivf_seg_scan"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
@@ -678,6 +1140,13 @@ def main() -> int:
     sq8_launches = phase_sq8_main_path(card, dev)
     launches.update((name, sq8_launches[name])
                     for name in ("sq8_scan", "sq8_select", "sq8_i8_scan"))
+    ix, q = phase_ivf_setup(dev)
+    stats["ivf_seg_scan"] = phase_ivf_kernel(ix, q, dev)
+    launches["ivf_seg_scan"] = phase_ivf_main(card, ix, q[:IVF_BATCH])
+    phase_ivf_routes(card, ix, q)
+    del ix
+    torch.cuda.empty_cache()
+    launches["ivf_seg_scan"] += phase_ivf_api(card, dev)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     replaces = {"bf_scan": "reindexer_tpu/ops/pallas_scan.py:94",
@@ -685,7 +1154,8 @@ def main() -> int:
                 "sq8_scan": "reindexer_tpu/ops/pallas_scan.py:311 + "
                             "reindexer_tpu/ops/pallas_select.py:247",
                 "sq8_select": "reindexer_tpu/ops/pallas_select.py:948",
-                "sq8_i8_scan": "reindexer_tpu/ops/pallas_select.py:1453"}
+                "sq8_i8_scan": "reindexer_tpu/ops/pallas_select.py:1453",
+                "ivf_seg_scan": "reindexer_tpu/ops/ivf_kernels.py:338"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"reindexer_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name],

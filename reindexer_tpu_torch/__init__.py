@@ -13,10 +13,10 @@ indexes live on:
     res = db.select(Query("items").where_knn("vec", qvec, KnnSearchParams(k=10)))
 
 Ported so far: the brute-force (`vec_bf`) vector index, fp32 and SQ8
-(modes exact, approx, approx_rerank), with its five hand-written CUDA
-kernels, and every host-only index type. HNSW, IVF, full text, array vector
-indexes, storage and meshes raise NotImplementedError (see ROADMAP.md). The
-package never imports JAX.
+(modes exact, approx, approx_rerank), and the IVF (`ivf`) index, with six
+hand-written CUDA kernels, and every host-only index type. HNSW, full text,
+array vector indexes, storage and meshes raise NotImplementedError (see
+ROADMAP.md). The package never imports JAX.
 """
 from reindexer_tpu import (AggType, BruteForceSearchParams, CondType,
                            ConflictError, EmbeddingConfig, FieldType,

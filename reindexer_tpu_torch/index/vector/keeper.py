@@ -50,6 +50,9 @@ class VectorKeeper:
         self.count = 0       # number of valid vectors
         self._pending: dict[int, Optional[np.ndarray]] = {}
         self._max_row = -1
+        # bulk_load into a fresh keeper rounds the rows to bf16 (IVF sets
+        # this, as the JAX keeper's IVF upload does)
+        self.upload_bf16 = False
 
     # --- mutation -------------------------------------------------------
     def set(self, row_id: int, vec: Optional[np.ndarray]) -> None:
@@ -129,7 +132,10 @@ class VectorKeeper:
 
     def bulk_load(self, matrix: np.ndarray, start_row: int = 0) -> None:
         """Ingest a [N, dims] block in one host-to-device copy (the fast
-        path for loaders and benchmarks)."""
+        path for loaders and benchmarks). With `upload_bf16` set, a fresh
+        keeper (count 0) stores the rows rounded to bf16 (to nearest even,
+        as ml_dtypes rounds in the JAX keeper), ships them as bf16 and
+        widens them on the device; |b|^2 comes from the rounded rows."""
         matrix = np.ascontiguousarray(matrix, dtype=np.float32)
         if matrix.ndim != 2 or matrix.shape[1] != self.dims:
             raise ParamsError("bulk_load expects [N, dims] float32")
@@ -139,7 +145,12 @@ class VectorKeeper:
         self.flush()
         self._grow_to(start_row + n)
         end = start_row + n
-        self.data[start_row:end] = torch.from_numpy(matrix).to(self.device)
+        src = torch.from_numpy(matrix)
+        if self.upload_bf16 and self.count == 0:
+            src = src.to(torch.bfloat16)
+            if self.metric == VectorMetric.L2:
+                matrix = src.to(torch.float32).numpy()
+        self.data[start_row:end] = src.to(self.device).to(torch.float32)
         self._sq_eff[start_row:end] = torch.from_numpy(
             self._sq_eff_of(matrix)).to(self.device)
         self.count += n - int(self.valid[start_row:end].sum())

@@ -34,6 +34,7 @@ _LAUNCH_ARGTYPES = {
     "sq8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sq8_i8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sq8_select": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "ivf_seg_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -281,7 +281,9 @@ def test_dims_mismatch_raises():
 
 @pytest.mark.parametrize("idef", [
     IndexDef("h", "hnsw", vector_opts=FloatVectorOpts(dims=4)),
-    IndexDef("i", "ivf", vector_opts=FloatVectorOpts(dims=4)),
+    # IVF is ported (tests/test_torch_ivf.py); an array IVF index is not
+    IndexDef("i", "ivf", opts=IndexOpts(is_array=True),
+             vector_opts=FloatVectorOpts(dims=4)),
     IndexDef("t", "text", "string"),
     IndexDef("a", "vec_bf", opts=IndexOpts(is_array=True),
              vector_opts=FloatVectorOpts(dims=4)),

@@ -3,9 +3,10 @@
 The check runs in a subprocess, so it never disturbs this worker's modules
 (the JAX package's tests share it). The child blocks JAX through a
 sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar namespace,
-a vec_bf namespace and an SQ8 vec_bf namespace (all three modes) on the CPU,
-checks that the engines not ported yet raise NotImplementedError, and that
-no JAX module got loaded.
+a vec_bf namespace, an SQ8 vec_bf namespace (all three modes) and an IVF
+namespace (select, knn_batch, a radius-only select) on the CPU, checks that
+the engines not ported yet raise NotImplementedError, and that no JAX module
+got loaded.
 """
 import os
 import subprocess
@@ -70,7 +71,29 @@ for m in modes:
     res = db.select(Query("sq8").where_knn(m, base[7], KnnSearchParams(k=3)))
     assert [d["id"] for d in res.docs()][0] == 7, (m, res.docs())
 
-for kind in ("hnsw", "ivf"):
+from reindexer_tpu_torch import IvfSearchParams
+from reindexer_tpu_torch.index.vector import ivf
+db.open_namespace("ivf", [
+    IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+    IndexDef("v", "ivf", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, centroids_count=4))])
+for i in range(50):
+    db.upsert("ivf", {"id": i, "v": base[i].tolist()})
+full = IvfSearchParams(k=3, nprobe=4)
+res = db.select(Query("ivf").where_knn("v", base[7], full))
+assert [d["id"] for d in res.docs()] == want, (res.docs(), want)
+out = db.knn_batch("ivf", "v", base[:2], IvfSearchParams(k=2, nprobe=4))
+assert [r.docs()[0]["id"] for r in out] == [0, 1]
+d2 = ((base - base[7]) ** 2).sum(1)
+radius = float(np.sort(d2)[5])
+ivf.gather_scans.reset()
+res = db.select(Query("ivf").where_knn(
+    "v", base[7], IvfSearchParams(radius=radius, nprobe=4)))
+assert ivf.gather_scans.value == 1
+assert sorted(d["id"] for d in res.docs()) == sorted(
+    np.flatnonzero(d2 < radius).tolist()), res.docs()
+
+for kind in ("hnsw",):
     try:
         db.add_index("vecs", IndexDef(kind, kind,
                                       vector_opts=FloatVectorOpts(dims=8)))
