@@ -1,9 +1,10 @@
 """reindexer_tpu_torch: the PyTorch / CUDA port of reindexer_tpu.
 
-The public API is reindexer_tpu's: `Query`, `IndexDef`, `FloatVectorOpts`,
-`KnnSearchParams`, the errors and the type constants are re-exported from it
-unchanged. `Reindexer` is the port's, and takes the torch device its vector
-indexes live on:
+The public API is reindexer_tpu's, exported from the port's own modules:
+`Query`, `IndexDef`, `FloatVectorOpts`, `KnnSearchParams`, the errors and
+the type constants are the port's copies of the reference's host layers
+(the package imports nothing of reindexer_tpu, and never JAX).
+`Reindexer` takes the torch device its vector indexes live on:
 
     from reindexer_tpu_torch import Reindexer, Query, IndexDef, IndexOpts
     db = Reindexer(device="cuda")
@@ -16,20 +17,23 @@ Ported so far: the brute-force (`vec_bf`) vector index, fp32 and SQ8
 (modes exact, approx, approx_rerank), and the IVF (`ivf`) index, with six
 hand-written CUDA kernels, and every host-only index type. HNSW, full text,
 array vector indexes, storage and meshes raise NotImplementedError (see
-ROADMAP.md). The package never imports JAX.
+ROADMAP.md).
 """
-from reindexer_tpu import (AggType, BruteForceSearchParams, CondType,
-                           ConflictError, EmbeddingConfig, FieldType,
-                           FloatVectorOpts, HnswSearchParams, IndexDef,
-                           IndexOpts, IndexType, IvfSearchParams, JoinType,
-                           KnnSearchParams, LogicError, NotFoundError, OpType,
-                           ParamsError, QuantizationConfig, Query,
-                           QueryCanceledError, QueryError, QueryResults,
-                           QueryTimeoutError, RdxContext, ReindexerError,
-                           ResultItem, SortingEntry, StorageError, StrictMode,
-                           Transaction, VectorMetric, rdxcontext)
-
 from .core.database import Reindexer
+from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,
+                          QueryCanceledError, QueryError, QueryTimeoutError,
+                          ReindexerError, StorageError)
+from .core.rdxcontext import RdxContext
+from .core import rdxcontext
+from .core.payload import (EmbeddingConfig, FloatVectorOpts, IndexDef, IndexOpts,
+                           QuantizationConfig)
+from .core.transaction import Transaction
+from .core.type_consts import (AggType, CondType, FieldType, IndexType, OpType,
+                               StrictMode, VectorMetric)
+from .index.vector.params import (BruteForceSearchParams, HnswSearchParams,
+                                  IvfSearchParams, KnnSearchParams)
+from .query.query import JoinType, Query, SortingEntry
+from .query.results import QueryResults, ResultItem
 
 __version__ = "0.1.0"
 

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from reindexer_tpu.core.errors import ParamsError
+from .core.errors import ParamsError
 
 
 def keeper_state_from_reference(state: dict) -> dict:

@@ -1,5 +1,5 @@
 // K2 `bf_select`: exact top-k from the scores and block maxima of K1
-// (bf_scan.cu), for Hopper (sm_90a). One CTA per query.
+// (bf_scan.cu), for Hopper (sm_90a). One CTA of 1024 threads per query.
 //
 // Replaces (reindexer_tpu/ops):
 //   - pallas_select.py::select_sweep  threshold over (bmax, eps), compaction
@@ -8,42 +8,55 @@
 //     ::pipelined_select (radix threshold, one-hot compaction, bitonic tail).
 //
 // Steps, per query:
-//   1. Threshold. tau = the k-th largest block max among valid blocks
-//      (bmax > -5e29), found by an 8-bit-a-pass radix select over the
-//      monotone uint32 image of the floats (the TPU's _key_i32 bisection,
-//      pallas_select.py:109). bmax streams from device memory through a
-//      shared-memory histogram, so G = N/64 is unbounded. With fewer than k
-//      valid blocks every valid block is admitted. tau is then widened by
-//      eps[q] (0 on every path that calls K2 today; K4, sq8_select.cu,
-//      thresholds the quantized block maxima with a real eps).
-//   2. Admit the valid blocks with bmax >= tau. Every row of the true top-k
+//   1. Stage. The query's G = N/64 block maxima are copied once into shared
+//      memory (8 KB at N = 131072, 64 KB at N = 1,048,576); above STAGE_G
+//      blocks the passes below read them from device memory instead.
+//   2. Threshold. tau = the k-th largest block max among valid blocks
+//      (bmax > -5e29), by a radix select over the monotone uint32 image of
+//      the floats (the TPU's _key_i32 bisection, pallas_select.py:109) in
+//      three passes of 11, 11 and 10 bits, each a shared-memory histogram
+//      filled with warp-aggregated atomics and scanned by one warp. With
+//      fewer than k valid blocks every valid block is admitted (tau = -inf).
+//      tau is then widened by eps[q] (0 on every path that calls K2 today).
+//   3. Admit the valid blocks with bmax >= tau. Every row of the true top-k
 //      lies in such a block: a row whose block max is below tau is beaten by
 //      the k rows that carry the k largest block maxima. The TPU kernels add
 //      MARGIN = 4 blocks (pallas_select.py:105) because their block maxima and
 //      their candidate scores come from two separately rounded products. Here
-//      K1 wrote bmax from the very values it wrote to S, and K2 gathers those
+//      K1 wrote bmax from the very values it wrote to S, and K2 reads those
 //      same values, so tau at exactly the k-th block max is already a superset
-//      and no margin is needed.
-//   3. Overflow. More than S_SLOTS = 128 admitted blocks (mass ties) sets
-//      flag[q]; the first 128 are used and the caller reruns the query
-//      through the plain scan.
-//   4. Gather the admitted blocks' scores (<= 8192) into shared memory as
-//      64-bit keys (score key << 32 | ~row), bitonic-sort them descending and
-//      emit the top k. Ties order by the smaller row first, so the result does
-//      not depend on the order in which blocks were admitted. Scores <= -5e29
-//      (invalid rows, padding) come out as -inf / -1.
+//      and no margin is needed. More than S_SLOTS = 128 admitted blocks (mass
+//      ties) sets flag[q]; the first 128 are used and the caller reruns the
+//      query through the plain scan.
+//   4. Filter. Only a row with S >= tau can be in the top k, and at least k
+//      rows pass: each of the k blocks whose max is >= tau holds one. So the
+//      k-th best score is >= tau (eps > 0 only lowers tau). The passing rows
+//      of the admitted blocks are compacted into shared memory as 64-bit
+//      keys (score key << 32 | ~row) with a warp-aggregated counter:
+//      typically a few hundred of the <= 8192 gathered rows.
+//   5. Order only those, descending by key, and emit the top k: up to 1024
+//      of them by rank (each thread counts the keys above its own), more by
+//      a bitonic sort of the next power of two of their count
+//      (select_common.cuh's sort_emit). Ties order by the smaller row
+//      first, so the result does not depend on the order in which blocks
+//      were admitted. Scores <= -5e29 (invalid rows, padding) come out as
+//      -inf / -1.
 //
-// What bounds it on the H100: latency, not bytes. It reads 4 + 1 passes of
-// G floats of bmax and at most 8192 floats of S per query, all from L2 right
-// after K1; the time goes to the chain of __syncthreads between the radix
-// passes and the 91 stages of the 8192-wide bitonic network.
-// What the design does about it: 1024 threads per query keep each pass to a
-// few loads a thread, the histogram bin is found by one warp-wide scan, and
-// the sort runs on shared memory only. At 64 queries it fills 64 of the 132
-// SMs; more queries per CTA or a persistent grid is later work.
+// What bounds it on the H100: latency, not bytes. It reads G floats of bmax
+// once and at most 8192 floats of S per query, from L2 right after K1
+// (about 0.7 us of bytes at 64 queries); the time is the chain of
+// __syncthreads between the steps. The first K2 streamed bmax from device
+// memory through four 8-bit radix passes and sorted all <= 8192 gathered
+// scores in 91 stages: 0.09 ms at 64 x 131072.
+// What the design does about it: bmax is read from device memory once, the
+// threshold takes three passes instead of four, each bin pick is spread over
+// all 32 warps, and the filtered rows are ranked in one step instead of
+// sorted. One query gets one SM: at 64 queries K2 fills 64 of the 132 SMs,
+// and a single select uses one.
 //
-// Steps 1, 2 and the sort of step 4 live in select_common.cuh, shared with
-// K4 (sq8_select.cu); only the source of a candidate's score is K2's own.
+// K4 (sq8_select.cu) keeps select_common.cuh's 8-bit threshold and its
+// gather of every admitted row: its candidates' scores are computed from
+// the fp32 base, not read, so it cannot filter before scoring.
 
 #include "select_common.cuh"
 
@@ -51,13 +64,161 @@ namespace {
 
 using namespace rxsel;
 
-__global__ void __launch_bounds__(THREADS)
-bf_select_kernel(const float* __restrict__ S, const float* __restrict__ bmax,
-                 const float* __restrict__ eps, float* __restrict__ out_s,
-                 int* __restrict__ out_i, float* __restrict__ flag, int N,
-                 int k) {
-  extern __shared__ unsigned long long cand[];   // MAX_CAND keys
-  __shared__ SelectShared sh;
+constexpr int STAGE_G = 16384;   // block maxima staged in shared memory
+constexpr int NB = 2048;         // bins of the widest radix pass (11 bits)
+constexpr uint32_t NO_BIN = 0xffffffffu;
+
+struct K2Shared {
+  int hist[NB];
+  int slots[S_SLOTS];
+  int run[32];                       // a warp's run of bins, summed
+  int bin, above, run_sel, run_above, count, n_pass;
+};
+
+// Over nb bins counted from the top, the bin holding the kk-th largest
+// key: sh.bin (-1 when fewer than kk keys were counted) and sh.above, the
+// count of keys in the bins above it. Warp w sums the w-th run of nb/32
+// bins from the top (each lane one or two bins), warp 0 scans the 32 run
+// totals, and the warp whose run holds the key scans its own bins. Called
+// by all threads; ends synchronized.
+__device__ void pick_bin_wide(const int* hist, int nb, int kk,
+                              K2Shared& sh) {
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int lp = nb / 32 / 32;                 // bins a lane: 1 or 2
+  const int top = nb - 1 - (w * 32 + lane) * lp;   // this lane's first bin
+  int local = 0;
+  for (int i = 0; i < lp; ++i) local += hist[top - i];
+  int incl = local;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) sh.run[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int v = sh.run[lane];
+    int rincl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, rincl, off);
+      if (lane >= off) rincl += u;
+    }
+    const unsigned hit = __ballot_sync(FULL, rincl - v < kk && kk <= rincl);
+    if (lane == 0) sh.run_sel = hit ? __ffs(hit) - 1 : -1;
+    if (hit && lane == __ffs(hit) - 1) sh.run_above = rincl - v;
+  }
+  __syncthreads();
+  const int sel = sh.run_sel;
+  if (sel < 0) {
+    if (t == 0) sh.bin = -1;
+  } else if (w == sel) {
+    const int need = kk - sh.run_above;   // the need-th key of this run
+    const unsigned hit =
+        __ballot_sync(FULL, incl - local < need && need <= incl);
+    if (lane == __ffs(hit) - 1) {
+      int cum = sh.run_above + incl - local;
+      for (int i = 0; i < lp; ++i) {
+        const int h = hist[top - i];
+        if (cum + h >= kk) {
+          sh.bin = top - i;
+          sh.above = cum;
+          break;
+        }
+        cum += h;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// tau over the block maxima bq[0..G) (shared or device memory): the kk-th
+// largest valid one minus eps, or -inf when fewer than kk are valid. Three
+// radix passes of 11, 11 and 10 bits. Called by all threads.
+__device__ float wide_threshold(const float* bq, int G, int kk, float eps,
+                                K2Shared& sh) {
+  const int t = threadIdx.x, lane = t & 31;
+  uint32_t prefix = 0, mask = 0;
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int shift = p == 0 ? 21 : p == 1 ? 10 : 0;
+    const int nb = p == 2 ? 1024 : 2048;
+    for (int b = t; b < nb; b += THREADS) sh.hist[b] = 0;
+    __syncthreads();
+    for (int g0 = 0; g0 < G; g0 += THREADS) {   // uniform trip count
+      const int g = g0 + t;
+      uint32_t bin = NO_BIN;
+      if (g < G) {
+        const float v = bq[g];
+        const uint32_t u = key_of(v);
+        if (v > SENT_HALF && (u & mask) == prefix)
+          bin = (u >> shift) & (uint32_t)(nb - 1);
+      }
+      // one atomic per distinct bin of the warp: the top bins are crowded
+      const unsigned peers = __match_any_sync(FULL, bin);
+      if (bin != NO_BIN && lane == __ffs(peers) - 1)
+        atomicAdd(&sh.hist[bin], __popc(peers));
+    }
+    __syncthreads();
+    pick_bin_wide(sh.hist, nb, kk, sh);
+    const int bin = sh.bin;
+    if (bin < 0) return -INFINITY;   // fewer than kk valid (first pass only)
+    kk -= sh.above;
+    prefix |= (uint32_t)bin << shift;
+    mask |= (uint32_t)(nb - 1) << shift;
+    __syncthreads();   // everyone has read sh.bin before the next pass
+  }
+  return float_of(prefix) - eps;
+}
+
+// The top k of cand[0..n) (n <= THREADS distinct keys) by rank: thread i
+// counts the keys above its own, all threads reading the same key at once,
+// and writes its key to that rank if it is below k; ranks past n are padded.
+// The same output as sort_emit, without the sort's log^2 barriers.
+__device__ void rank_emit(const unsigned long long* cand, int n, int k,
+                          float* __restrict__ out_s,
+                          int* __restrict__ out_i) {
+  const int t = threadIdx.x;
+  if (t < n) {
+    const unsigned long long mine = cand[t];
+    int rank = 0;
+    for (int j = 0; j < n; ++j) rank += cand[j] > mine;
+    if (rank < k) {
+      const float s = float_of((uint32_t)(mine >> 32));
+      const bool ok = s > SENT_HALF;
+      out_s[rank] = ok ? s : -INFINITY;
+      out_i[rank] = ok ? (int)~(uint32_t)mine : -1;
+    }
+  } else if (t < k) {
+    out_s[t] = -INFINITY;
+    out_i[t] = -1;
+  }
+}
+
+// Appends `value` where `pred` holds to out[*counter ...] (the first `cap`
+// of them) with one atomic a warp. Called by every lane of the warp.
+template <class T>
+__device__ __forceinline__ void warp_append(bool pred, int* counter, T value,
+                                            T* out, int cap) {
+  const int lane = threadIdx.x & 31;
+  const unsigned votes = __ballot_sync(FULL, pred);
+  if (votes == 0) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(counter, __popc(votes));
+  base = __shfl_sync(FULL, base, 0);
+  const int pos = base + __popc(votes & ((1u << lane) - 1));
+  if (pred && pos < cap) out[pos] = value;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    bf_select_kernel(const float* __restrict__ S,
+                     const float* __restrict__ bmax,
+                     const float* __restrict__ eps, float* __restrict__ out_s,
+                     int* __restrict__ out_i, float* __restrict__ flag, int N,
+                     int k) {
+  // MAX_CAND keys, then (G <= STAGE_G) the staged block maxima
+  extern __shared__ unsigned long long cand[];
+  __shared__ K2Shared sh;
 
   const int qi = blockIdx.x;
   const int t = threadIdx.x;
@@ -65,20 +226,52 @@ bf_select_kernel(const float* __restrict__ S, const float* __restrict__ bmax,
   const float* bq = bmax + (size_t)qi * G;
   const float* sq = S + (size_t)qi * N;
 
-  // 1-2. threshold at the k-th largest valid block max, admit
-  const float tau = block_threshold(bq, G, k, eps[qi], sh);
-  const int count = admit_blocks(bq, G, tau, sh);
-
-  // 3. overflow flag
-  if (t == 0) flag[qi] = count > S_SLOTS ? 1.f : 0.f;
-  const int n_cand = min(count, S_SLOTS) * BLK;
-
-  // 4. gather, sort, emit
-  for (int c = t; c < n_cand; c += THREADS) {
-    const uint32_t row = (uint32_t)sh.slots[c / BLK] * BLK + (c % BLK);
-    cand[c] = cand_key(sq[row], row);
+  // 1. stage the block maxima
+  if (G <= STAGE_G) {
+    float* staged = reinterpret_cast<float*>(cand + MAX_CAND);
+    for (int g = t; g < G; g += THREADS) staged[g] = bq[g];
+    bq = staged;
   }
-  sort_emit(cand, n_cand, k, out_s + (size_t)qi * k, out_i + (size_t)qi * k);
+  if (t == 0) sh.count = sh.n_pass = 0;
+  __syncthreads();
+
+  // 2. threshold at the k-th largest valid block max
+  const float tau = wide_threshold(bq, G, k, eps[qi], sh);
+
+  // 3. admit the valid blocks at or above tau
+  for (int g0 = 0; g0 < G; g0 += THREADS) {   // uniform trip count
+    const int g = g0 + t;
+    const float v = g < G ? bq[g] : -INFINITY;
+    warp_append(v > SENT_HALF && v >= tau, &sh.count, g, sh.slots, S_SLOTS);
+  }
+  __syncthreads();
+  const int count = sh.count;
+  if (t == 0) flag[qi] = count > S_SLOTS ? 1.f : 0.f;
+  const int n_rows = min(count, S_SLOTS) * BLK;
+
+  // 4. filter S >= tau into the candidate keys
+  for (int c0 = 0; c0 < n_rows; c0 += THREADS) {   // uniform trip count
+    const int c = c0 + t;
+    bool pred = false;
+    unsigned long long key = 0;
+    if (c < n_rows) {
+      const uint32_t row = (uint32_t)sh.slots[c / BLK] * BLK + (c % BLK);
+      const float s = sq[row];
+      pred = s >= tau;
+      key = cand_key(s, row);
+    }
+    warp_append(pred, &sh.n_pass, key, cand, MAX_CAND);
+  }
+  __syncthreads();
+
+  // 5. rank or sort the passing rows, emit the top k
+  const int n_pass = sh.n_pass;
+  if (n_pass <= THREADS)
+    rank_emit(cand, n_pass, k, out_s + (size_t)qi * k,
+              out_i + (size_t)qi * k);
+  else
+    sort_emit(cand, n_pass, k, out_s + (size_t)qi * k,
+              out_i + (size_t)qi * k);
 }
 
 }  // namespace
@@ -93,9 +286,13 @@ extern "C" int bf_select_launch(const void* S, const void* bmax,
                                 void* stream) {
   if (Q <= 0 || N <= 0 || N % BLK != 0 || k <= 0 || k > S_SLOTS)
     return (int)cudaErrorInvalidValue;
-  const int smem = MAX_CAND * (int)sizeof(unsigned long long);
+  const int G = N / BLK;
+  const int smem = MAX_CAND * (int)sizeof(unsigned long long) +
+                   (G <= STAGE_G ? G * (int)sizeof(float) : 0);
   const cudaError_t e = cudaFuncSetAttribute(
-      bf_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      bf_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_CAND * (int)sizeof(unsigned long long) +
+          STAGE_G * (int)sizeof(float));
   if (e != cudaSuccess) return (int)e;
   bf_select_kernel<<<Q, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)S, (const float*)bmax, (const float*)eps, (float*)out_s,

@@ -1,19 +1,21 @@
-"""Index factory (port of reindexer_tpu/index/factory.py).
+"""Index factory (port of reindexer_tpu/index/factory.py; reference: Index::New
+switch, cpp_src/core/index/index.cc:80-115).
 
-`vec_bf` and `ivf` build the port's brute-force and IVF engines on the
-namespace's device. Scalar, composite and rtree indexes are host-only and
-come from the JAX package's own factory, which builds them without touching
-JAX. Engines not ported yet (HNSW, full text, array vector indexes) raise
-NotImplementedError rather than silently building a JAX engine.
+Scalar, composite and rtree indexes are the port's copies of the host-only
+reference indexes. `vec_bf` and `ivf` build the port's brute-force and IVF
+engines on the namespace's torch device. Engines not ported yet (HNSW, full
+text, array vector indexes) raise NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
 
-from reindexer_tpu.core.payload import IndexDef
-from reindexer_tpu.core.type_consts import IndexType
-from reindexer_tpu.index import factory as _ref
-from reindexer_tpu.index.base import Index
+from ..core.errors import ParamsError
+from ..core.payload import IndexDef
+from ..core.type_consts import FieldType, IndexType
+from .base import Index
+from .scalar import (CompositeIndex, HashIndex, StoreIndex, TreeIndex,
+                     TtlIndex, UuidIndex)
 
 _NOT_PORTED = {
     IndexType.HNSW: "HNSW (and streaming KNN)",
@@ -26,6 +28,24 @@ def create_index(idef: IndexDef, device: torch.device) -> Index:
         raise NotImplementedError(
             f"{_NOT_PORTED[idef.index_type]} indexes are not yet ported to "
             "reindexer_tpu_torch, see ROADMAP")
+    if idef.is_composite:
+        return CompositeIndex(idef, ordered=idef.index_type == IndexType.TREE)
+    if idef.index_type == IndexType.HASH:
+        if idef.field_type == FieldType.UUID:
+            # dedicated 128-bit-key UUID index (uuid_index.cc)
+            return UuidIndex(idef)
+        return HashIndex(idef)
+    if idef.index_type == IndexType.TREE:
+        return TreeIndex(idef)
+    if idef.index_type == IndexType.STORE:
+        return StoreIndex(idef)
+    if idef.index_type == IndexType.TTL:
+        if idef.opts.expire_after <= 0:
+            raise ParamsError("ttl index requires opts.expire_after > 0")
+        return TtlIndex(idef)
+    if idef.index_type == IndexType.RTREE:
+        from .rtree import RTreeIndex
+        return RTreeIndex(idef)
     if idef.index_type in (IndexType.VEC_BF, IndexType.IVF):
         if idef.opts.is_array:
             raise NotImplementedError(
@@ -36,4 +56,4 @@ def create_index(idef: IndexDef, device: torch.device) -> Index:
             return IvfIndex(idef, device)
         from .vector.brute_force import BruteForceIndex
         return BruteForceIndex(idef, device)
-    return _ref._create(idef)
+    raise ParamsError(f"unknown index type: {idef.index_type}")

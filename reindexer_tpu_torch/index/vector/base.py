@@ -13,11 +13,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from reindexer_tpu.core.errors import ParamsError
-from reindexer_tpu.core.payload import IndexDef
-from reindexer_tpu.core.type_consts import CondType, RankOrdering
-from reindexer_tpu.index.base import Index, SelectKeyResult
-from reindexer_tpu.index.vector.params import KnnSearchParams
+from ...core.errors import ParamsError
+from ...core.payload import IndexDef
+from ...core.type_consts import CondType, RankOrdering
+from ...index.base import Index, SelectKeyResult
+from ...index.vector.params import KnnSearchParams
 
 from ...ops.distance import metric_ordering
 from .keeper import VectorKeeper

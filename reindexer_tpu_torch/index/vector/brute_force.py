@@ -39,10 +39,10 @@ import os
 import numpy as np
 import torch
 
-from reindexer_tpu.core.errors import ParamsError
-from reindexer_tpu.core.payload import IndexDef
-from reindexer_tpu.index.base import SelectKeyResult
-from reindexer_tpu.index.vector.params import KnnSearchParams
+from ...core.errors import ParamsError
+from ...core.payload import IndexDef
+from ...index.base import SelectKeyResult
+from ...index.vector.params import KnnSearchParams
 
 from ...ops._build import Counter
 from ...ops.distance import knn_scan, pairwise_scores, scores_to_ranks

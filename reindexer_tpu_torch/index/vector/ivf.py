@@ -45,10 +45,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from reindexer_tpu.core.payload import IndexDef
-from reindexer_tpu.core.type_consts import VectorMetric
-from reindexer_tpu.index.base import SelectKeyResult
-from reindexer_tpu.index.vector.params import KnnSearchParams
+from ...core.payload import IndexDef
+from ...core.type_consts import VectorMetric
+from ...index.base import SelectKeyResult
+from ...index.vector.params import KnnSearchParams
 
 from ...ops._build import Counter
 from ...ops.distance import scores_to_ranks

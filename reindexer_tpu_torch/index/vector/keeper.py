@@ -21,8 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from reindexer_tpu.core.errors import ParamsError
-from reindexer_tpu.core.type_consts import VectorMetric
+from ...core.errors import ParamsError
+from ...core.type_consts import VectorMetric
 
 from ...ops.distance import normalize_rows
 from ...ops.scan import SQ_EFF_BIG

@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from reindexer_tpu.core.type_consts import VectorMetric
+from ...core.type_consts import VectorMetric
 
 from ...ops.distance import chunked_topk
 from ...ops.scan import SQ_EFF_BIG

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reindexer_tpu.core.type_consts import RankOrdering, VectorMetric
+from ..core.type_consts import RankOrdering, VectorMetric
 
 
 def metric_ordering(metric: VectorMetric) -> RankOrdering:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from reindexer_tpu.core.type_consts import VectorMetric
+from ..core.type_consts import VectorMetric
 
 
 def _score_gathered(q: torch.Tensor, vecs: torch.Tensor, vec_sq: torch.Tensor,

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from reindexer_tpu.core.type_consts import VectorMetric
+from ..core.type_consts import VectorMetric
 
 from . import _build
 from .scan import SENT, SENT_HALF, _cuda_or_cpu

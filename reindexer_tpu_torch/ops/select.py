@@ -18,8 +18,11 @@ Selection contract, per query:
   flag  = 1 when more than S_SLOTS = 128 blocks are admitted (mass ties, or
           an eps too wide for the data): the result is then unspecified and
           the caller reruns the query;
-  out   = top k of the admitted blocks' scores, best first; scores
-          <= -5e29 come out as -inf / -1.
+  out   = top k of the admitted blocks' scores, best first, ties by the
+          smaller row; scores <= -5e29 come out as -inf / -1.
+K2 takes one more step before its sort: only the admitted rows with
+S >= tau, at least k of them, can be in the top k (each of the k blocks
+whose max is >= tau holds one), so it sorts those alone.
 
 The composed scans, each over groups of <= 64 queries:
   knn_scan_fused       K1 + K2, exact fp32 (replaces knn_scan_fused_v2/v3/v4)
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from reindexer_tpu.core.type_consts import VectorMetric
+from ..core.type_consts import VectorMetric
 
 from . import _build
 from .scan import (BLK, SENT_HALF, _cuda_or_cpu, bf_scan, score_factor,
@@ -53,12 +56,10 @@ launches = _build.Counter()              # K2 bf_select
 sq8_select_launches = _build.Counter()   # K4 sq8_select
 
 
-def _topk_of_admitted(cand: torch.Tensor, k: int,
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top k of cand f32[Q, N] (-inf outside the admitted blocks), scores
-    <= -5e29 as -inf / -1, padded to k columns."""
+def _emit(top_s: torch.Tensor, top_i: torch.Tensor, k: int,
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scores <= -5e29 as -inf / -1 (ids i32), padded to k columns."""
     neg_inf = float("-inf")
-    top_s, top_i = torch.topk(cand, min(k, cand.shape[1]), dim=1)
     ok = top_s > SENT_HALF
     top_s = torch.where(ok, top_s, neg_inf)
     top_i = torch.where(ok, top_i, -1).to(torch.int32)
@@ -69,21 +70,56 @@ def _topk_of_admitted(cand: torch.Tensor, k: int,
     return top_s, top_i
 
 
+def _topk_of_admitted(cand: torch.Tensor, k: int,
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k of cand f32[Q, N] (-inf outside the admitted blocks), emitted."""
+    return _emit(*torch.topk(cand, min(k, cand.shape[1]), dim=1), k)
+
+
+def _best_k(cand: torch.Tensor, rows: torch.Tensor, k: int,
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k of cand f32[Q, M] (-inf where no candidate), emitted, with
+    ties in the order K2 gives them: the smaller row first; rows i64[Q, M]
+    is each column's row. Only the candidates (at least k columns) are
+    sorted: topk takes them in no set order, then they are put in row order
+    and sorted stably by score."""
+    m = int((cand > float("-inf")).sum(dim=1).max()) if cand.numel() else 0
+    m = min(cand.shape[1], max(k, m))
+    top_s, pos = torch.topk(cand, m, dim=1)
+    top_i, order = torch.sort(torch.gather(rows, 1, pos), dim=1)
+    top_s = torch.gather(top_s, 1, order)
+    top_s, order = torch.sort(top_s, dim=1, descending=True, stable=True)
+    top_i = torch.gather(top_i, 1, order)
+    return _emit(top_s[:, :k], top_i[:, :k], k)
+
+
 def bf_select_plain(s: torch.Tensor, bmax: torch.Tensor, eps: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K2: (scores f32[Q, k], ids i32[Q, k], flag f32[Q])."""
+    """Plain PyTorch K2, step for step: (scores f32[Q, k], ids i32[Q, k],
+    flag f32[Q])."""
     n_q, n = s.shape
     n_blocks = bmax.shape[1]
     valid = bmax > SENT_HALF
     neg_inf = torch.tensor(float("-inf"), device=s.device)
+    # threshold at the k-th largest valid block max, widened by eps
     kth = torch.topk(torch.where(valid, bmax, neg_inf), min(k, n_blocks),
                      dim=1).values[:, -1]
     tau = torch.where(valid.sum(dim=1) >= k, kth - eps, neg_inf)
+    # admit, flag
     admit = valid & (bmax >= tau[:, None])
-    flag = (admit.sum(dim=1) > S_SLOTS).to(torch.float32)
-    cand = torch.where(admit[:, :, None], s.view(n_q, n_blocks, BLK),
-                       neg_inf).view(n_q, n)
-    return (*_topk_of_admitted(cand, k), flag)
+    n_admit = admit.sum(dim=1)
+    flag = (n_admit > S_SLOTS).to(torch.float32)
+    # gather the admitted blocks' rows (a query's admitted blocks are its
+    # blocks with the largest maxima, so its top max(n_admit) blocks hold
+    # them all), filter them to S >= tau, then the k best of those
+    blocks = torch.topk(torch.where(admit, bmax, neg_inf),
+                        int(n_admit.max()) if n_q else 0, dim=1).indices
+    rows = (blocks[:, :, None] * BLK
+            + torch.arange(BLK, device=s.device)).flatten(1)
+    scores = torch.gather(s, 1, rows)
+    passing = (torch.gather(admit, 1, blocks).repeat_interleave(BLK, dim=1)
+               & (scores >= tau[:, None]))
+    return (*_best_k(torch.where(passing, scores, neg_inf), rows, k), flag)
 
 
 def _check(s: torch.Tensor, bmax: torch.Tensor, eps: torch.Tensor,

@@ -1,0 +1,343 @@
+"""Sort expressions and hybrid rerankers.
+
+Semantic equivalent of the reference sort expression engine
+(cpp_src/core/sorting/sortexpression.cc: fields, arithmetic, abs(), rank(),
+rank(index, default), ST_Distance(), hash()) and the hybrid rerankers
+(cpp_src/core/sorting/reranker.h:11-57):
+
+- RRF:     1/(C + pos_ft) + 1/(C + pos_knn), C default 60 (`RRF(rank_const=N)`)
+- linear:  A*rank(ft_idx) + B*rank(knn_idx) + C  — plain arithmetic over rank()
+
+Expressions evaluate as whole vectors over the candidate row set, so sorting
+is one argsort instead of a per-row comparator (TPU-first batched design).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Optional
+
+import numpy as np
+
+from ..core.errors import QueryError
+from ..core.type_consts import RankOrdering
+
+DEFAULT_RRF_RANK_CONST = 60.0
+
+
+@dataclasses.dataclass
+class RankSource:
+    """One ranked result stream (FT or KNN) feeding rank()/RRF()."""
+
+    field: str
+    kind: str                 # 'ft' | 'knn'
+    ids: np.ndarray           # row ids, best-first order
+    ranks: np.ndarray         # metric values aligned to ids
+    ordering: RankOrdering
+    # FT: vocabulary words that matched (drives highlight/snippet)
+    matched_words: Optional[set] = None
+    # FT: [(holder, matched word ids)] — source-offset areas for
+    # positionally-exact highlight (reference: ft/areaholder.h)
+    area_sources: Optional[list] = None
+
+    def _index_of(self, rows: np.ndarray) -> np.ndarray:
+        """Vectorized position lookup: index into self.ids per row, -1 for
+        absent (searchsorted over a cached sorted view — the per-row dict
+        walk measured 3.8ms/call on large candidate sets)."""
+        lk = getattr(self, "_lookup", None)
+        if lk is None or lk[2] is not self.ids:
+            order = np.argsort(self.ids, kind="stable")
+            lk = (self.ids[order], order, self.ids)
+            self._lookup = lk
+        sorted_ids, order, _ = lk
+        rows = np.asarray(rows, dtype=sorted_ids.dtype
+                          if len(sorted_ids) else np.int64)
+        if not len(sorted_ids):
+            return np.full(len(rows), -1, dtype=np.int64)
+        p = np.searchsorted(sorted_ids, rows)
+        p = np.minimum(p, len(sorted_ids) - 1)
+        hit = sorted_ids[p] == rows
+        return np.where(hit, order[p], -1)
+
+    def rank_of(self, rows: np.ndarray, default: float = 0.0) -> np.ndarray:
+        j = self._index_of(rows)
+        if self.ranks is None or not len(self.ranks):
+            # rank-less source (e.g. KNN over an empty namespace)
+            return np.full(len(j), default, dtype=np.float64)
+        return np.where(j >= 0, self.ranks[np.maximum(j, 0)],
+                        default).astype(np.float64)
+
+    def position_of(self, rows: np.ndarray) -> np.ndarray:
+        """1-based best-first position; 0 marks 'absent' (reference RRF uses
+        position in each ranked stream, reranker.h)."""
+        return (self._index_of(rows) + 1).astype(np.int64)
+
+    def score_key(self, rows: np.ndarray) -> np.ndarray:
+        """Higher-is-better sort key from ranks."""
+        worst = (np.inf if self.ordering == RankOrdering.ASC else -np.inf)
+        vals = self.rank_of(rows, default=worst)
+        return -vals if self.ordering == RankOrdering.ASC else vals
+
+
+_TOKEN_RE = re.compile(
+    r"\s*(?:(?P<num>\d+\.\d*|\.\d+|\d+)|(?P<name>[A-Za-z_][\w.+]*)"
+    r"|(?P<op>[()+\-*/,=])|(?P<str>'[^']*'))")
+
+
+def _tokenize(expr: str) -> list[tuple[str, str]]:
+    tokens = []
+    i = 0
+    while i < len(expr):
+        m = _TOKEN_RE.match(expr, i)
+        if not m:
+            raise QueryError(f"bad sort expression near '{expr[i:]}'")
+        i = m.end()
+        for kind in ("num", "name", "op", "str"):
+            v = m.group(kind)
+            if v is not None:
+                tokens.append((kind, v))
+                break
+    tokens.append(("eof", ""))
+    return tokens
+
+
+class SortExprEvaluator:
+    """Recursive-descent evaluator over candidate rows."""
+
+    def __init__(self, ns, rows: np.ndarray,
+                 sources: dict[str, RankSource]):
+        self.ns = ns
+        self.rows = rows
+        self.sources = sources
+        self._tokens: list[tuple[str, str]] = []
+        self._pos = 0
+
+    # --- public ---------------------------------------------------------
+    def is_plain_field(self, expr: str) -> bool:
+        return re.fullmatch(r"[A-Za-z_][\w.+]*", expr.strip()) is not None and \
+            expr.strip().lower() not in ("rank", "rrf", "hash", "abs", "now", "random")
+
+    def evaluate(self, expr: str) -> np.ndarray:
+        self._tokens = _tokenize(expr)
+        self._pos = 0
+        result = self._expr()
+        if self._peek()[0] != "eof":
+            raise QueryError(f"trailing tokens in sort expression '{expr}'")
+        return np.asarray(result, dtype=np.float64)
+
+    # --- parser ---------------------------------------------------------
+    def _peek(self) -> tuple[str, str]:
+        return self._tokens[self._pos]
+
+    def _next(self) -> tuple[str, str]:
+        tok = self._tokens[self._pos]
+        self._pos += 1
+        return tok
+
+    def _expect(self, val: str) -> None:
+        kind, v = self._next()
+        if v != val:
+            raise QueryError(f"expected '{val}', got '{v}' in sort expression")
+
+    def _expr(self) -> np.ndarray:
+        left = self._term()
+        while self._peek()[1] in ("+", "-"):
+            op = self._next()[1]
+            right = self._term()
+            left = left + right if op == "+" else left - right
+        return left
+
+    def _term(self) -> np.ndarray:
+        left = self._factor()
+        while self._peek()[1] in ("*", "/"):
+            op = self._next()[1]
+            right = self._factor()
+            if op == "*":
+                left = left * right
+            else:
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    left = np.where(right != 0, left / np.where(right == 0, 1, right), 0.0)
+        return left
+
+    def _factor(self) -> np.ndarray:
+        kind, v = self._peek()
+        if v == "-":
+            self._next()
+            return -self._factor()
+        if v == "+":
+            self._next()
+            return self._factor()
+        if v == "(":
+            self._next()
+            e = self._expr()
+            self._expect(")")
+            return e
+        if kind == "num":
+            self._next()
+            return np.full(len(self.rows), float(v), dtype=np.float64)
+        if kind == "name":
+            self._next()
+            if self._peek()[1] == "(":
+                return self._call(v)
+            return self._field_values(v)
+        raise QueryError(f"unexpected token '{v}' in sort expression")
+
+    # --- functions ------------------------------------------------------
+    def _call(self, name: str) -> np.ndarray:
+        lname = name.lower()
+        self._expect("(")
+        if lname == "abs":
+            e = self._expr()
+            self._expect(")")
+            return np.abs(e)
+        if lname == "rank":
+            return self._rank_call()
+        if lname == "rrf":
+            return self._rrf_call()
+        if lname == "hash":
+            seed = 0
+            if self._peek()[0] == "num":
+                seed = int(float(self._next()[1]))
+            self._expect(")")
+            rng = np.random.default_rng(seed or None)
+            return rng.permutation(len(self.rows)).astype(np.float64)
+        if lname == "random":
+            self._expect(")")
+            return np.random.default_rng().random(len(self.rows))
+        if lname == "now":
+            # now([unit]) — constant over rows
+            if self._peek()[0] == "name":
+                self._next()
+            self._expect(")")
+            import time
+            return np.full(len(self.rows), time.time(), dtype=np.float64)
+        if lname == "st_distance":
+            return self._st_distance_call()
+        raise QueryError(f"unknown sort function '{name}'")
+
+    def _rank_call(self) -> np.ndarray:
+        # rank() | rank(index_name) | rank(index_name, default)
+        if self._peek()[1] == ")":
+            self._next()
+            if len(self.sources) != 1:
+                if not self.sources:
+                    raise QueryError("rank() used in non-ranked query")
+                raise QueryError(
+                    "rank() is ambiguous with multiple ranked entries; "
+                    "use rank(index_name)")
+            src = next(iter(self.sources.values()))
+            return src.rank_of(self.rows)
+        kind, idx_name = self._next()
+        if kind not in ("name", "str"):
+            raise QueryError("rank() expects an index name")
+        idx_name = idx_name.strip("'")
+        default = 0.0
+        if self._peek()[1] == ",":
+            self._next()
+            tok = self._next()
+            neg = False
+            if tok[1] == "-":
+                neg, tok = True, self._next()
+            default = float(tok[1]) * (-1 if neg else 1)
+        self._expect(")")
+        src = self.sources.get(idx_name)
+        if src is None:
+            raise QueryError(f"rank('{idx_name}'): no ranked entry on that index")
+        return src.rank_of(self.rows, default)
+
+    def _rrf_call(self) -> np.ndarray:
+        # RRF() | RRF(rank_const=N)  (reference: reranker.h RerankerRRF)
+        c = DEFAULT_RRF_RANK_CONST
+        if self._peek()[1] != ")":
+            kind, v = self._next()
+            if kind == "name" and v.lower() == "rank_const":
+                self._expect("=")
+                c = float(self._next()[1])
+            elif kind == "num":
+                c = float(v)
+            else:
+                raise QueryError("RRF() accepts only rank_const=N")
+        self._expect(")")
+        if not self.sources:
+            raise QueryError("RRF() used in non-ranked query")
+        out = np.zeros(len(self.rows), dtype=np.float64)
+        for src in self.sources.values():
+            pos = src.position_of(self.rows)
+            contrib = np.where(pos > 0, 1.0 / (c + pos), 0.0)
+            out += contrib
+        return out
+
+    def _st_distance_call(self) -> np.ndarray:
+        # ST_Distance(field, ST_GeomFromText('point(x y)')) or (field, field)
+        args: list[Any] = []
+        while True:
+            kind, v = self._peek()
+            if v == ")":
+                self._next()
+                break
+            if v == ",":
+                self._next()
+                continue
+            self._next()
+            if kind == "name" and v.lower() == "st_geomfromtext":
+                self._expect("(")
+                _, s = self._next()
+                self._expect(")")
+                m = re.match(r"'?point\(([-\d.eE+]+)\s+([-\d.eE+]+)\)'?", s.strip("'"),
+                             re.IGNORECASE)
+                if not m:
+                    raise QueryError(f"bad geometry literal: {s}")
+                args.append((float(m.group(1)), float(m.group(2))))
+            else:
+                args.append(v)
+        if len(args) != 2:
+            raise QueryError("ST_Distance expects 2 arguments")
+        pts = []
+        for a in args:
+            if isinstance(a, tuple):
+                pts.append(np.tile(np.asarray(a, dtype=np.float64), (len(self.rows), 1)))
+            else:
+                vals = self._point_field(a)
+                pts.append(vals)
+        return np.sqrt(np.sum((pts[0] - pts[1]) ** 2, axis=1))
+
+    def _point_field(self, field: str) -> np.ndarray:
+        out = np.zeros((len(self.rows), 2), dtype=np.float64)
+        for i, row in enumerate(self.rows):
+            doc = self.ns.get_item(int(row))
+            if doc is None:
+                continue
+            from ..core.payload import get_json_path
+            v = get_json_path(doc, field)
+            if isinstance(v, (list, tuple)) and len(v) == 2:
+                out[i] = (float(v[0]), float(v[1]))
+        return out
+
+    # --- fields ---------------------------------------------------------
+    def _field_values(self, field: str) -> np.ndarray:
+        col = self.ns.column_values(field)
+        out = np.zeros(len(self.rows), dtype=np.float64)
+        if col is not None and not col.is_array and col.values().dtype != object:
+            vals = col.values()
+            n = len(vals)
+            for i, row in enumerate(self.rows):
+                r = int(row)
+                if r < n:
+                    out[i] = float(vals[r])
+            return out
+        from ..core.payload import get_json_path
+        for i, row in enumerate(self.rows):
+            doc = self.ns.get_item(int(row))
+            if doc is None:
+                continue
+            v = get_json_path(doc, field)
+            if isinstance(v, list):
+                v = v[0] if v else None
+            if v is None:
+                continue
+            try:
+                out[i] = float(v)
+            except (TypeError, ValueError):
+                raise QueryError(
+                    f"field '{field}' is not numeric in sort expression")
+        return out

@@ -1,7 +1,9 @@
 """reindexer_tpu_torch's brute-force engine vs reindexer_tpu's, through the
 public API: the same documents go into `reindexer_tpu.Reindexer()` and
 `reindexer_tpu_torch.Reindexer(device="cpu")`, on the cases of
-tests/test_vector_bf.py.
+tests/test_vector_bf.py. Each database gets its definitions and queries
+built from its own package: the port's `IndexDef`, `Query`, ... are classes
+of its own.
 
 Tolerance: ids match as sets, except between near-ties at the k-th rank
 (within rtol 1e-4 of it); ranks match within rtol 1e-4 (atol 1e-4 for
@@ -24,14 +26,20 @@ from reindexer_tpu_torch.convert import keeper_state_from_reference
 from reindexer_tpu_torch.index.vector import brute_force
 from reindexer_tpu_torch.index.vector.brute_force import BruteForceIndex
 
+# this file runs beside timing-sensitive tests (the TCP cluster's raft
+# timeouts) when the suite is spread over processes: a small intra-op pool
+# keeps torch from taking every core
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-4, 1e-4
 
 
-def _defs(metric, dims):
-    return [IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
-            IndexDef("v", "vec_bf", vector_opts=FloatVectorOpts(
-                dims=dims, metric=VectorMetric(metric))),
-            IndexDef("grp", "hash", "int")]
+def _defs(metric, dims, pkg=port):
+    return [pkg.IndexDef("id", "hash", "int",
+                         opts=pkg.IndexOpts(is_pk=True)),
+            pkg.IndexDef("v", "vec_bf", vector_opts=pkg.FloatVectorOpts(
+                dims=dims, metric=pkg.VectorMetric(metric))),
+            pkg.IndexDef("grp", "hash", "int")]
 
 
 def make_pair(metric="l2", dims=32, n=300, seed=0, device="cpu"):
@@ -39,8 +47,8 @@ def make_pair(metric="l2", dims=32, n=300, seed=0, device="cpu"):
     base = np.random.default_rng(seed).normal(size=(n, dims)).astype(
         np.float32)
     dbs = (ref.Reindexer(), port.Reindexer(device=device))
-    for db in dbs:
-        db.open_namespace("vecs", _defs(metric, dims))
+    for db, pkg in zip(dbs, (ref, port)):
+        db.open_namespace("vecs", _defs(metric, dims, pkg))
         for i, row in enumerate(base.tolist()):
             db.upsert("vecs", {"id": i, "v": row, "grp": i % 3})
     return dbs, base
@@ -63,7 +71,15 @@ def assert_same_knn(res_ref, res_port):
 
 
 def both(dbs, query):
-    return [db.select(query) for db in dbs]
+    """query(pkg) -> the query built from pkg's classes, run on each
+    database with its own package's query."""
+    return [db.select(query(pkg)) for db, pkg in zip(dbs, (ref, port))]
+
+
+def knn(field, value, **params):
+    """query(pkg) for `vecs` with a KNN condition on `field`."""
+    return lambda pkg: pkg.Query("vecs").where_knn(
+        field, value, pkg.KnnSearchParams(**params))
 
 
 @pytest.fixture(scope="module")
@@ -78,16 +94,14 @@ def test_select_matches_reference(metric):
     rng = np.random.default_rng(1)
     for _ in range(3):
         q = rng.normal(size=base.shape[1]).astype(np.float32)
-        assert_same_knn(*both(dbs, Query("vecs").where_knn(
-            "v", q, KnnSearchParams(k=10))))
+        assert_same_knn(*both(dbs, knn("v", q, k=10)))
 
 
 def test_deletes_and_reupserts():
     dbs, base = make_pair("l2", n=200, seed=2)
     rng = np.random.default_rng(3)
     # a select first, so that the deletes hit rows already on the device
-    assert_same_knn(*both(dbs, Query("vecs").where_knn(
-        "v", base[14], KnnSearchParams(k=40))))
+    assert_same_knn(*both(dbs, knn("v", base[14], k=40)))
     for db in dbs:
         for i in range(0, 200, 7):
             db.delete("vecs", {"id": i})
@@ -97,16 +111,14 @@ def test_deletes_and_reupserts():
         db.upsert("vecs", {"id": 7, "v": base[7].tolist(), "grp": 0})
     for _ in range(3):
         q = rng.normal(size=32).astype(np.float32)
-        res = both(dbs, Query("vecs").where_knn("v", q,
-                                                KnnSearchParams(k=40)))
+        res = both(dbs, knn("v", q, k=40))
         assert_same_knn(*res)
         assert not {0, 14, 21} & {d["id"] for d in res[1].docs()}
 
 
 def test_k_above_count():
     dbs, base = make_pair("l2", n=50, seed=4)
-    res = both(dbs, Query("vecs").where_knn("v", base[3],
-                                            KnnSearchParams(k=80)))
+    res = both(dbs, knn("v", base[3], k=80))
     assert len(res[1]) == 50
     assert_same_knn(*res)
 
@@ -115,8 +127,7 @@ def test_radius_with_k():
     dbs, base = make_pair("l2", n=100, seed=5)
     d = np.sort(((base - base[0]) ** 2).sum(1))
     radius = float((d[9] + d[10]) / 2)
-    res = both(dbs, Query("vecs").where_knn(
-        "v", base[0], KnnSearchParams(k=100, radius=radius)))
+    res = both(dbs, knn("v", base[0], k=100, radius=radius))
     assert len(res[1]) == 10
     assert_same_knn(*res)
 
@@ -125,8 +136,7 @@ def test_radius_only():
     dbs, base = make_pair("inner_product", n=100, seed=6)
     s = np.sort(base @ base[0])
     radius = float((s[-5] + s[-4]) / 2)
-    res = both(dbs, Query("vecs").where_knn("v", base[0],
-                                            KnnSearchParams(radius=radius)))
+    res = both(dbs, knn("v", base[0], radius=radius))
     assert len(res[1]) == 4
     assert_same_knn(*res)
 
@@ -134,8 +144,8 @@ def test_radius_only():
 def test_knn_batch_128_queries(pair_3k):
     dbs, base = pair_3k
     q = np.random.default_rng(7).normal(size=(128, 128)).astype(np.float32)
-    outs = [db.knn_batch("vecs", "v", q, KnnSearchParams(k=25))
-            for db in dbs]
+    outs = [db.knn_batch("vecs", "v", q, pkg.KnnSearchParams(k=25))
+            for db, pkg in zip(dbs, (ref, port))]
     assert len(outs[1]) == 128
     for r_ref, r_port in zip(*outs):
         assert_same_knn(r_ref, r_port)
@@ -144,15 +154,14 @@ def test_knn_batch_128_queries(pair_3k):
 def test_select_3k_k100(pair_3k):
     dbs, base = pair_3k
     for qi in (0, 1234, 2999):
-        assert_same_knn(*both(dbs, Query("vecs").where_knn(
-            "v", base[qi] + 0.01, KnnSearchParams(k=100))))
+        assert_same_knn(*both(dbs, knn("v", base[qi] + 0.01, k=100)))
 
 
 def test_where_filter_and_knn(pair_3k):
     dbs, base = pair_3k
     q = np.zeros(128, np.float32)
-    res = both(dbs, Query("vecs").where("grp", "=", 1).where_knn(
-        "v", q, KnnSearchParams(k=60)))
+    res = both(dbs, lambda pkg: pkg.Query("vecs").where(
+        "grp", "=", 1).where_knn("v", q, pkg.KnnSearchParams(k=60)))
     assert all(d["grp"] == 1 for d in res[1].docs())
     assert_same_knn(*res)
 
@@ -212,9 +221,9 @@ def test_keeper_state_from_reference():
     assert ix.keeper.count == ref_ix.keeper.count == 117
     assert ix.memstat() == ref_ix.memstat()
     q = np.random.default_rng(9).normal(size=(4, 16)).astype(np.float32)
-    p = KnnSearchParams(k=20)
-    for r_ref, r_port in zip(ref_ix.select_batch(q, p),
-                             ix.select_batch(q, p)):
+    for r_ref, r_port in zip(
+            ref_ix.select_batch(q, ref.KnnSearchParams(k=20)),
+            ix.select_batch(q, KnnSearchParams(k=20))):
         assert set(r_ref.ids.tolist()) == set(r_port.ids.tolist())
         assert not {3, 50, 119} & set(r_port.ids.tolist())
         np.testing.assert_allclose(r_port.ranks, r_ref.ranks, rtol=RTOL,
@@ -263,8 +272,7 @@ def test_mass_ties_rerun_through_knn_scan():
 def test_k_above_128_runs_knn_scan():
     dbs, base = make_pair("l2", n=400, seed=14)
     brute_force.geometry_scans.reset()
-    res = both(dbs, Query("vecs").where_knn("v", base[9],
-                                            KnnSearchParams(k=200)))
+    res = both(dbs, knn("v", base[9], k=200))
     assert brute_force.geometry_scans.value == 1
     assert len(res[1]) == 200
     assert_same_knn(*res)

@@ -35,7 +35,8 @@ import torch
 
 import reindexer_tpu as ref
 import reindexer_tpu_torch as port
-from reindexer_tpu.query.dsl import parse_dsl
+from reindexer_tpu.query import dsl as ref_dsl
+from reindexer_tpu_torch.query import dsl as port_dsl
 from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
                                  IndexType, IvfSearchParams, Query,
                                  VectorMetric)
@@ -490,13 +491,19 @@ def test_router_defaults_follow_the_h100_table(monkeypatch, batch, seg_rows,
 
 # --- 3. trained from scratch, through the public API ---------------------
 
+PKGS = (ref, port)       # each database gets its own package's classes
+
+
 def _pair_dbs(base, metric, nlist, dims):
     dbs = (ref.Reindexer(), port.Reindexer(device="cpu"))
-    for db in dbs:
+    for db, pkg in zip(dbs, PKGS):
         db.open_namespace("v", [
-            IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
-            IndexDef("vec", IndexType.IVF, vector_opts=FloatVectorOpts(
-                dims=dims, metric=metric, centroids_count=nlist))])
+            pkg.IndexDef("id", "hash", "int",
+                         opts=pkg.IndexOpts(is_pk=True)),
+            pkg.IndexDef("vec", pkg.IndexType.IVF,
+                         vector_opts=pkg.FloatVectorOpts(
+                             dims=dims, metric=pkg.VectorMetric(metric.value),
+                             centroids_count=nlist))])
         for i, row in enumerate(base.tolist()):
             db.upsert("v", {"id": i, "vec": row})
     return dbs
@@ -512,11 +519,12 @@ def test_separated_clusters_match_from_scratch(metric):
     base, qs = clustered(rng, 700, 16, 8)
     dbs = _pair_dbs(base, metric, 8, 16)
     for nprobe in (1, 3, 8):
-        params = IvfSearchParams(k=15, nprobe=nprobe)
+        params = [pkg.IvfSearchParams(k=15, nprobe=nprobe) for pkg in PKGS]
         for q in qs:
-            assert_same(*(db.select(Query("v").where_knn("vec", q, params))
-                          for db in dbs))
-        outs = [db.knn_batch("v", "vec", qs, params) for db in dbs]
+            assert_same(*(db.select(pkg.Query("v").where_knn("vec", q, p))
+                          for db, pkg, p in zip(dbs, PKGS, params)))
+        outs = [db.knn_batch("v", "vec", qs, p)
+                for db, p in zip(dbs, params)]
         for a, b in zip(*outs):
             assert_same(a, b)
 
@@ -531,9 +539,9 @@ def test_isotropic_recall_matches_from_scratch():
             for q in qs]
     prev = None
     for nprobe in (1, 4, 16, 32):
-        params = IvfSearchParams(k=k, nprobe=nprobe)
         rec = [np.mean([len(set(_ids(r)) & w) / k for r, w in zip(
-            db.knn_batch("v", "vec", qs, params), want)]) for db in dbs]
+            db.knn_batch("v", "vec", qs, pkg.IvfSearchParams(
+                k=k, nprobe=nprobe)), want)]) for db, pkg in zip(dbs, PKGS)]
         assert abs(rec[0] - rec[1]) <= RECALL_SLACK, (nprobe, rec)
         assert prev is None or rec[1] >= prev
         prev = rec[1]
@@ -549,8 +557,8 @@ def test_sql_dsl_nprobe_and_rebuild_action():
     dsl = {"namespace": "v", "filters": [
         {"field": "vec", "cond": "knn", "value": qs[0].tolist(),
          "params": {"k": 5, "nprobe": 2}}]}
-    got = [(_ids(db.select(sql)), _ids(db.select(parse_dsl(dsl))))
-           for db in dbs]
+    got = [(_ids(db.select(sql)), _ids(db.select(dsl_mod.parse_dsl(dsl))))
+           for db, dsl_mod in zip(dbs, (ref_dsl, port_dsl))]
     assert got[0] == got[1]
     assert got[1][0] == got[1][1] and len(got[1][0]) == 5
     for db in dbs:
@@ -590,6 +598,10 @@ def test_reference_ivf_cases_on_port(name, kwargs, monkeypatch):
     monkeypatch.setattr(test_ivf, "make_index", make_index)
     monkeypatch.setattr(test_ivf, "Reindexer",
                         lambda: port.Reindexer(device="cpu"))
+    # the cases build definitions and queries with the port's own classes
+    for name_ in ("FloatVectorOpts", "IndexDef", "IndexOpts", "IndexType",
+                  "Query", "VectorMetric", "IvfSearchParams"):
+        monkeypatch.setattr(test_ivf, name_, getattr(port, name_))
     fn = getattr(test_ivf, name)
     extra = {}
     if "monkeypatch" in fn.__code__.co_varnames[:fn.__code__.co_argcount]:

@@ -1,26 +1,43 @@
-"""reindexer_tpu_torch runs with every `jax` / `jaxlib` import blocked.
+"""reindexer_tpu_torch runs with every `jax` / `jaxlib` import and the JAX
+package `reindexer_tpu` itself blocked, and no file of it names the JAX
+package in an import.
 
-The check runs in a subprocess, so it never disturbs this worker's modules
-(the JAX package's tests share it). The child blocks JAX through a
-sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar namespace,
+The run check is in a subprocess, so it never disturbs this worker's modules
+(the JAX package's tests share it). The child blocks `jax`, `jaxlib` and
+`reindexer_tpu` (exactly that top-level name, not `reindexer_tpu_torch`)
+through a sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar
+namespace,
 a vec_bf namespace, an SQ8 vec_bf namespace (all three modes) and an IVF
 namespace (select, knn_batch, a radius-only select) on the CPU, checks that
 the engines not ported yet raise NotImplementedError, and that no JAX module
-got loaded.
+got loaded, nor the JAX package. The static check reads every `*.py` of
+the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
+reindexer_tpu` naming the JAX package.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "reindexer_tpu")
+# `import reindexer_tpu` / `from reindexer_tpu` followed by ".", whitespace
+# or the end of the line: the JAX package or one of its modules
+REF_IMPORT = re.compile(r"\b(?:import|from)\s+reindexer_tpu(?:[.\s]|$)",
+                        re.M)
+PORT_FILES = sorted(
+    str(p.relative_to(REPO))
+    for p in (REPO / "reindexer_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
 
 CHILD = r'''
 import sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"):
             raise ImportError(f"import of {name} blocked")
         return None
 
@@ -108,7 +125,8 @@ except NotImplementedError:
 else:
     raise AssertionError("text did not raise")
 
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"))
 assert not loaded, loaded
 print("NOJAX-OK")
 '''
@@ -122,3 +140,22 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX-OK" in proc.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_does_not_import_the_jax_package(path):
+    text = (REPO / path).read_text()
+    hits = [m.group(0) for m in REF_IMPORT.finditer(text)]
+    assert not hits, f"{path} imports the JAX package: {hits}"
+
+
+def test_reference_import_pattern():
+    """The pattern catches the JAX package and its modules, and not the
+    port's own name."""
+    for line in ("import reindexer_tpu", "from reindexer_tpu.core import x",
+                 "from reindexer_tpu import Query",
+                 "    import reindexer_tpu\n"):
+        assert REF_IMPORT.search(line), line
+    for line in ("import reindexer_tpu_torch", "from reindexer_tpu_torch.ops "
+                 "import scan", "# see reindexer_tpu/ops/pallas_scan.py"):
+        assert not REF_IMPORT.search(line), line

@@ -13,12 +13,19 @@ JAX, so they also run where JAX is absent:
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from reindexer_tpu_torch import VectorMetric
 from reindexer_tpu_torch.ops import _build, distance, scan, select
 from reindexer_tpu_torch.ops.scan import SQ_EFF_BIG, bf_scan, bf_scan_plain
 from reindexer_tpu_torch.ops.select import (S_SLOTS, bf_select,
                                             bf_select_plain, knn_scan_fused)
+
+# this file runs beside timing-sensitive tests (the TCP cluster's raft
+# timeouts) when the suite is spread over processes: a small intra-op pool
+# keeps torch from taking every core
+torch.set_num_threads(2)
 
 N, D = 2 * 8192, 128
 RTOL, ATOL = 1e-4, 1e-3
@@ -200,6 +207,73 @@ def test_bf_select_plain_contract():
     assert (over > 0).all()          # every valid block admitted: 299 > 128
 
 
+def _first_bf_select_plain(s, bmax, eps, k):
+    """The first K2's steps: tau, admit, then the k best of every row of the
+    admitted blocks (no filter), ties by the smaller row."""
+    n_q, n = s.shape
+    valid = bmax > scan.SENT_HALF
+    neg_inf = torch.tensor(float("-inf"))
+    kth = torch.topk(torch.where(valid, bmax, neg_inf),
+                     min(k, bmax.shape[1]), dim=1).values[:, -1]
+    tau = torch.where(valid.sum(dim=1) >= k, kth - eps, neg_inf)
+    admit = valid & (bmax >= tau[:, None])
+    flag = (admit.sum(dim=1) > S_SLOTS).to(torch.float32)
+    cand = torch.where(admit.repeat_interleave(64, dim=1), s, neg_inf)
+    top_i = torch.sort(cand, dim=1, descending=True, stable=True).indices
+    top_i = top_i[:, :k]
+    return (*select._emit(torch.gather(cand, 1, top_i), top_i, k), flag)
+
+
+@st.composite
+def _select_case(draw):
+    """Scores of few distinct values (mass ties at tau), invalid rows and
+    whole invalid blocks, eps >= 0, k from 1 to 128, up to 200 blocks (more
+    than 128 admitted overflows)."""
+    n_q = draw(st.integers(1, 3))
+    n_blocks = draw(st.integers(1, 200))
+    k = draw(st.sampled_from([1, 2, 5, 64, 100, 127, 128]))
+    seed = draw(st.integers(0, 2 ** 31 - 1))
+    levels = draw(st.sampled_from([3, 10, 1000]))
+    p_invalid_row = draw(st.sampled_from([0.0, 0.3, 0.97]))
+    p_invalid_block = draw(st.sampled_from([0.0, 0.5, 1.0]))
+    eps = draw(st.sampled_from([0.0, 0.5, 2.0]))
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, levels, (n_q, n_blocks * 64)).astype(np.float32)
+    s[rng.random(s.shape) < p_invalid_row] = -1e30
+    dead = rng.random((n_q, n_blocks)) < p_invalid_block
+    s.reshape(n_q, n_blocks, 64)[dead] = -1e30
+    s = torch.from_numpy(s)
+    return s, s.view(n_q, -1, 64).amax(2), torch.full((n_q,), eps), k
+
+
+@settings(max_examples=150, deadline=None)
+@given(_select_case())
+@example((torch.full((2, 64 * 150), 3.0), torch.full((2, 150), 3.0),
+          torch.zeros(2), 32))                          # overflow: all tie
+@example((torch.full((1, 640), -1e30), torch.full((1, 10), -1e30),
+          torch.zeros(1), 128))                         # nothing valid
+def test_bf_select_plain_filter_keeps_the_first_result(case):
+    """K2's filter S >= tau before the top-k changes nothing: the plain
+    version with the filter equals the first K2's steps exactly (scores,
+    ids with ties by the smaller row, flag)."""
+    s, bmax, eps, k = case
+    got = bf_select_plain(s, bmax, eps, k)
+    want = _first_bf_select_plain(s, bmax, eps, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bf_select_plain_orders_ties_by_row():
+    """Tied scores come out smaller row first, as K2's keys order them."""
+    s = torch.zeros((1, 64 * 4))
+    s[0, [200, 3, 70, 130]] = 1.0
+    top_s, top_i, _ = bf_select_plain(s, s.view(1, -1, 64).amax(2),
+                                      torch.zeros(1), 6)
+    assert top_i[0, :4].tolist() == [3, 70, 130, 200]
+    assert top_i[0, 4:].tolist() == [0, 1]
+    assert top_s[0].tolist() == [1.0] * 4 + [0.0] * 2
+
+
 # --- the plain scans vs the JAX package's XLA scans ------------------------
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -318,6 +392,45 @@ def test_cuda_bf_scan_matches_plain(cuda_device, metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n,d", [(64, 8192, 128), (1, 8192, 128),
+                                     (5, 640, 100), (70, 192, 37),
+                                     (130, 1088, 256), (100, 2048, 128),
+                                     (9, 1024, 128)])
+def test_cuda_bf_scan_is_fp32_accurate(cuda_device, n_q, n, d):
+    """K1 stays within 8 fp32 ulps of sum_d |q_d b_d| of the float64
+    product on every path of the kernel (Q <= 8 in fp32 FMA; the 3xTF32
+    wgmma with the query group resident, D <= 128, or streamed, D > 128;
+    D % 4 != 0 without tensor maps; Q > 64; N % 128 == 64), and its bmax is
+    the block max of its S."""
+    q, base, sq = _t(*_inputs(16, n_q, VectorMetric.INNER_PRODUCT, n=n, d=d),
+                     device=cuda_device)
+    s, bmax = bf_scan(q, base, sq, VectorMetric.INNER_PRODUCT)
+    q64, b64 = q.double(), base.double()
+    err = (s.double() - (q64 @ b64.T - sq.double()[None, :])).abs()
+    mag = q64.abs() @ b64.abs().T + sq.double().abs()[None, :]
+    assert (err <= 8 * torch.finfo(torch.float32).eps * mag).all()
+    assert torch.equal(bmax, s.view(n_q, -1, 64).amax(dim=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,d", [(1, 16), (8, 16), (1, 32), (8, 32)])
+def test_cuda_bf_scan_small_q_over_many_tiles(cuda_device, n_q, d):
+    """Q <= 8 with one D-chunk a tile, 1,024 tiles over the card's CTAs:
+    each tile's sq_eff buffer is refilled two tiles later, and every row
+    still scores with its own sq_eff (L2, within 8 fp32 ulps of the float64
+    product)."""
+    n = 131072
+    q, base, sq = _t(*_inputs(18, n_q, VectorMetric.L2, n=n, d=d),
+                     device=cuda_device)
+    s, bmax = bf_scan(q, base, sq, VectorMetric.L2)
+    q64, b64, sq64 = q.double(), base.double(), sq.double()
+    err = (s.double() - (2 * q64 @ b64.T - sq64[None, :])).abs()
+    mag = 2 * q64.abs() @ b64.abs().T + sq64.abs()[None, :]
+    assert (err <= 8 * torch.finfo(torch.float32).eps * mag).all()
+    assert torch.equal(bmax, s.view(n_q, -1, 64).amax(dim=2))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 100, 128])
 def test_cuda_bf_select_matches_plain(cuda_device, k):
     q, base, sq = _t(*_inputs(14, 64, VectorMetric.L2), device=cuda_device)
@@ -328,6 +441,20 @@ def test_cuda_bf_select_matches_plain(cuda_device, k):
     assert torch.equal(o_s, p_s) and float(o_f.max()) == 0.0
     for b in range(64):
         assert set(o_i[b].tolist()) == set(p_i[b].tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_bf_select_streams_wide_bmax(cuda_device):
+    """Above 16,384 blocks K2 reads the block maxima from device memory
+    instead of staging them; it still equals its plain version."""
+    rng = np.random.default_rng(17)
+    s = torch.from_numpy(rng.normal(size=(2, 64 * 20000)).astype(
+        np.float32)).to(cuda_device)
+    bmax = s.view(2, -1, 64).amax(dim=2)
+    eps = torch.zeros(2, device=cuda_device)
+    for got, want in zip(bf_select(s, bmax, eps, 100),
+                         bf_select_plain(s, bmax, eps, 100)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -40,6 +40,11 @@ from reindexer_tpu_torch.ops.select import (knn_scan_approx_sq8,
                                             knn_scan_sq8, sq8_select,
                                             sq8_select_plain)
 
+# this file runs beside timing-sensitive tests (the TCP cluster's raft
+# timeouts) when the suite is spread over processes: a small intra-op pool
+# keeps torch from taking every core
+torch.set_num_threads(2)
+
 N, D = 2 * 8192, 128
 TILE = 8192
 METRICS = [VectorMetric.L2, VectorMetric.INNER_PRODUCT]
