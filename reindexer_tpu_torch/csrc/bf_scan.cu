@@ -66,14 +66,16 @@
 //     numbers bit for bit.
 // Operands that a tensor map cannot take (D % 4 != 0, or a pointer off 16
 // bytes) run the same kernel with the producer reading device memory and
-// laying the base chunk out in the ring slot as the copy would.
+// laying the base chunk out in the ring slot as the copy would. The TMA,
+// mbarrier and wgmma helpers are tma_wgmma.cuh's, shared with K3 and K4.
 
-#include <cuda.h>            // CUtensorMap and its enums (types only)
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tma_wgmma.cuh"
 
 namespace {
+
+using namespace rxtc;
 
 constexpr int BM = 64;           // queries per tile: the M of one wgmma
 constexpr int BN = 128;          // base rows per tile: the N of one wgmma
@@ -111,10 +113,6 @@ struct Smem {
   unsigned long long a_free;          // resident query split read
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // index of element (row r, column k < KC) of a split tile of R rows: core
 // matrices of 8 rows x 4 floats (128 contiguous bytes); the two core
 // matrices of a k-step's 8 columns lie 128 bytes apart (LBO), consecutive
@@ -123,13 +121,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ int split_idx(int R, int r, int k) {
   return (k >> 3) * (R * 8) + (r >> 3) * 64 + ((k >> 2) & 1) * 32 +
          (r & 7) * 4 + (k & 3);
-}
-
-// wgmma shared-memory descriptor of a no-swizzle K-major tile
-__device__ __forceinline__ uint64_t make_desc(const float* tile) {
-  const uint64_t lbo = 128 >> 4, sbo = 256 >> 4;
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (lbo << 16) |
-         (sbo << 32);
 }
 
 // wgmma descriptor of a K-major tile as a 128-byte-swizzled TMA box lays it
@@ -151,71 +142,6 @@ __device__ __forceinline__ float to_tf32(float x) {
 // x truncated to TF32: what a wgmma reads of an fp32 operand
 __device__ __forceinline__ float truncate_tf32(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA copy of the box at (column c0, row c1) of a 2D tensor map
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// pins the accumulator registers after wgmma.wait_group in program order:
-// the compiler sees no dependence between the wait and the registers it
-// completes
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64] += A (64 x 8, tf32) * B (8 x 128, tf32), both from shared memory;
@@ -661,64 +587,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (a.a_resident && item + 1 < my_items &&
           stage_of(a, st).qg != s0.qg)
         mbar_arrive(&sm.a_free);
-      fence_operands(hi);
-      fence_operands(lo);
+      fence_operands<64>(hi);
+      fence_operands<64>(lo);
       epilogue(a, hi, lo, sm.sq[item & 1], s0.qg, s0.tile);
     }
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime (no link
-// against libcuda); null when the driver does not have it
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static bool tried = false;
-  if (!tried) {
-    tried = true;
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // map of a row-major f32 [rows, D] tensor in boxes of KC columns x box_rows
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
               int D, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 4};
-  const cuuint32_t box[2] = {KC, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0 &&
-      cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                             dev) != cudaSuccess)
-    return 132;
-  return cached[dev];
+  return make_map_2d(enc, map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows,
+                     D, KC, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

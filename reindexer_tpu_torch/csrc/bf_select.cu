@@ -54,9 +54,8 @@
 // sorted. One query gets one SM: at 64 queries K2 fills 64 of the 132 SMs,
 // and a single select uses one.
 //
-// K4 (sq8_select.cu) keeps select_common.cuh's 8-bit threshold and its
-// gather of every admitted row: its candidates' scores are computed from
-// the fp32 base, not read, so it cannot filter before scoring.
+// The threshold, the append, the rank and the sort live in
+// select_common.cuh, shared with K4 (sq8_select.cu).
 
 #include "select_common.cuh"
 
@@ -65,150 +64,6 @@ namespace {
 using namespace rxsel;
 
 constexpr int STAGE_G = 16384;   // block maxima staged in shared memory
-constexpr int NB = 2048;         // bins of the widest radix pass (11 bits)
-constexpr uint32_t NO_BIN = 0xffffffffu;
-
-struct K2Shared {
-  int hist[NB];
-  int slots[S_SLOTS];
-  int run[32];                       // a warp's run of bins, summed
-  int bin, above, run_sel, run_above, count, n_pass;
-};
-
-// Over nb bins counted from the top, the bin holding the kk-th largest
-// key: sh.bin (-1 when fewer than kk keys were counted) and sh.above, the
-// count of keys in the bins above it. Warp w sums the w-th run of nb/32
-// bins from the top (each lane one or two bins), warp 0 scans the 32 run
-// totals, and the warp whose run holds the key scans its own bins. Called
-// by all threads; ends synchronized.
-__device__ void pick_bin_wide(const int* hist, int nb, int kk,
-                              K2Shared& sh) {
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-  const int lp = nb / 32 / 32;                 // bins a lane: 1 or 2
-  const int top = nb - 1 - (w * 32 + lane) * lp;   // this lane's first bin
-  int local = 0;
-  for (int i = 0; i < lp; ++i) local += hist[top - i];
-  int incl = local;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) sh.run[w] = incl;
-  __syncthreads();
-  if (w == 0) {
-    const int v = sh.run[lane];
-    int rincl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(FULL, rincl, off);
-      if (lane >= off) rincl += u;
-    }
-    const unsigned hit = __ballot_sync(FULL, rincl - v < kk && kk <= rincl);
-    if (lane == 0) sh.run_sel = hit ? __ffs(hit) - 1 : -1;
-    if (hit && lane == __ffs(hit) - 1) sh.run_above = rincl - v;
-  }
-  __syncthreads();
-  const int sel = sh.run_sel;
-  if (sel < 0) {
-    if (t == 0) sh.bin = -1;
-  } else if (w == sel) {
-    const int need = kk - sh.run_above;   // the need-th key of this run
-    const unsigned hit =
-        __ballot_sync(FULL, incl - local < need && need <= incl);
-    if (lane == __ffs(hit) - 1) {
-      int cum = sh.run_above + incl - local;
-      for (int i = 0; i < lp; ++i) {
-        const int h = hist[top - i];
-        if (cum + h >= kk) {
-          sh.bin = top - i;
-          sh.above = cum;
-          break;
-        }
-        cum += h;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// tau over the block maxima bq[0..G) (shared or device memory): the kk-th
-// largest valid one minus eps, or -inf when fewer than kk are valid. Three
-// radix passes of 11, 11 and 10 bits. Called by all threads.
-__device__ float wide_threshold(const float* bq, int G, int kk, float eps,
-                                K2Shared& sh) {
-  const int t = threadIdx.x, lane = t & 31;
-  uint32_t prefix = 0, mask = 0;
-#pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    const int shift = p == 0 ? 21 : p == 1 ? 10 : 0;
-    const int nb = p == 2 ? 1024 : 2048;
-    for (int b = t; b < nb; b += THREADS) sh.hist[b] = 0;
-    __syncthreads();
-    for (int g0 = 0; g0 < G; g0 += THREADS) {   // uniform trip count
-      const int g = g0 + t;
-      uint32_t bin = NO_BIN;
-      if (g < G) {
-        const float v = bq[g];
-        const uint32_t u = key_of(v);
-        if (v > SENT_HALF && (u & mask) == prefix)
-          bin = (u >> shift) & (uint32_t)(nb - 1);
-      }
-      // one atomic per distinct bin of the warp: the top bins are crowded
-      const unsigned peers = __match_any_sync(FULL, bin);
-      if (bin != NO_BIN && lane == __ffs(peers) - 1)
-        atomicAdd(&sh.hist[bin], __popc(peers));
-    }
-    __syncthreads();
-    pick_bin_wide(sh.hist, nb, kk, sh);
-    const int bin = sh.bin;
-    if (bin < 0) return -INFINITY;   // fewer than kk valid (first pass only)
-    kk -= sh.above;
-    prefix |= (uint32_t)bin << shift;
-    mask |= (uint32_t)(nb - 1) << shift;
-    __syncthreads();   // everyone has read sh.bin before the next pass
-  }
-  return float_of(prefix) - eps;
-}
-
-// The top k of cand[0..n) (n <= THREADS distinct keys) by rank: thread i
-// counts the keys above its own, all threads reading the same key at once,
-// and writes its key to that rank if it is below k; ranks past n are padded.
-// The same output as sort_emit, without the sort's log^2 barriers.
-__device__ void rank_emit(const unsigned long long* cand, int n, int k,
-                          float* __restrict__ out_s,
-                          int* __restrict__ out_i) {
-  const int t = threadIdx.x;
-  if (t < n) {
-    const unsigned long long mine = cand[t];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) rank += cand[j] > mine;
-    if (rank < k) {
-      const float s = float_of((uint32_t)(mine >> 32));
-      const bool ok = s > SENT_HALF;
-      out_s[rank] = ok ? s : -INFINITY;
-      out_i[rank] = ok ? (int)~(uint32_t)mine : -1;
-    }
-  } else if (t < k) {
-    out_s[t] = -INFINITY;
-    out_i[t] = -1;
-  }
-}
-
-// Appends `value` where `pred` holds to out[*counter ...] (the first `cap`
-// of them) with one atomic a warp. Called by every lane of the warp.
-template <class T>
-__device__ __forceinline__ void warp_append(bool pred, int* counter, T value,
-                                            T* out, int cap) {
-  const int lane = threadIdx.x & 31;
-  const unsigned votes = __ballot_sync(FULL, pred);
-  if (votes == 0) return;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(counter, __popc(votes));
-  base = __shfl_sync(FULL, base, 0);
-  const int pos = base + __popc(votes & ((1u << lane) - 1));
-  if (pred && pos < cap) out[pos] = value;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
     bf_select_kernel(const float* __restrict__ S,
@@ -218,7 +73,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                      int k) {
   // MAX_CAND keys, then (G <= STAGE_G) the staged block maxima
   extern __shared__ unsigned long long cand[];
-  __shared__ K2Shared sh;
+  __shared__ SelectShared sh;
 
   const int qi = blockIdx.x;
   const int t = threadIdx.x;
@@ -265,13 +120,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   // 5. rank or sort the passing rows, emit the top k
-  const int n_pass = sh.n_pass;
-  if (n_pass <= THREADS)
-    rank_emit(cand, n_pass, k, out_s + (size_t)qi * k,
-              out_i + (size_t)qi * k);
-  else
-    sort_emit(cand, n_pass, k, out_s + (size_t)qi * k,
-              out_i + (size_t)qi * k);
+  emit_top_k(cand, sh.n_pass, k, out_s + (size_t)qi * k,
+             out_i + (size_t)qi * k);
 }
 
 }  // namespace

@@ -1,24 +1,25 @@
 // The block-threshold selection shared by K2 `bf_select` (bf_select.cu) and
 // K4 `sq8_select` (sq8_select.cu), for Hopper (sm_90a). One CTA of THREADS
-// threads selects for one query.
+// threads thresholds, admits and emits for one query.
 //
-//   block_threshold  tau = the kk-th largest valid block max (bmax > -5e29),
-//                    by an 8-bit-a-pass radix select over the monotone
-//                    uint32 image of the floats (the TPU's _key_i32
-//                    bisection, pallas_select.py:109), minus eps; -inf when
-//                    fewer than kk blocks are valid. bmax streams from device
-//                    memory through a shared-memory histogram, so G is
-//                    unbounded.
-//   admit_blocks     the valid blocks with bmax >= tau, by an atomic slot
-//                    counter; the first S_SLOTS = 128 land in the slots, the
-//                    count says whether more were admitted (overflow).
-//   sort_emit        a bitonic sort, in shared memory, of the caller's
-//                    candidates as 64-bit keys (score key << 32 | ~row),
-//                    descending, and the top k out: ties order by the
-//                    smaller row, and scores <= -5e29 come out as -inf / -1.
+//   wide_threshold  tau = the kk-th largest valid block max (bmax > -5e29),
+//                   by a radix select over the monotone uint32 image of the
+//                   floats (the TPU's _key_i32 bisection,
+//                   pallas_select.py:109) in three passes of 11, 11 and 10
+//                   bits, each a shared-memory histogram filled with
+//                   warp-aggregated atomics and scanned by all 32 warps,
+//                   minus eps; -inf when fewer than kk blocks are valid.
+//   warp_append     one atomic a warp appends the lanes where a predicate
+//                   holds (admitted blocks, passing candidates).
+//   rank_emit       the top k of up to THREADS distinct candidate keys by
+//                   rank (each thread counts the keys above its own).
+//   sort_emit       a bitonic sort, in shared memory, of the candidates as
+//                   64-bit keys, descending, and the top k out.
+// Candidate keys are score key << 32 | ~row: ties order by the smaller row,
+// and scores <= -5e29 come out as -inf / -1.
 //
-// The callers differ only in where a candidate's score comes from: K2 reads
-// it from K1's S, K4 computes it from the fp32 base.
+// The callers differ in where a candidate's score comes from: K2 reads it
+// from K1's S, K4 computes it from the fp32 base.
 
 #pragma once
 
@@ -34,12 +35,15 @@ constexpr int MAX_CAND = S_SLOTS * BLK;      // 8192 candidate scores
 constexpr int THREADS = 1024;
 constexpr float SENT_HALF = -5e29f;          // at or below: invalid
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int NB = 2048;                     // bins of the widest radix pass
+constexpr uint32_t NO_BIN = 0xffffffffu;
 
 // shared state of one selecting CTA (static shared memory)
 struct SelectShared {
-  int hist[256];
+  int hist[NB];
   int slots[S_SLOTS];
-  int bin, above, count;
+  int run[32];                       // a warp's run of bins, summed
+  int bin, above, run_sel, run_above, count, n_pass;
 };
 
 // monotone float -> uint32 map: float order == unsigned order
@@ -58,87 +62,139 @@ __device__ __forceinline__ unsigned long long cand_key(float s, uint32_t row) {
   return ((unsigned long long)key_of(s) << 32) | (uint32_t)~row;
 }
 
-// Warp 0: over the 256 bins counted from the top, find the bin holding the
-// kk-th largest key. Writes the bin (or -1 when fewer than kk keys were
-// counted) and the count of keys in the bins above it.
-__device__ void pick_bin(const int* hist, int kk, int* out_bin,
-                         int* out_above) {
-  const int lane = threadIdx.x & 31;
-  const int top = 255 - 8 * lane;            // this lane: bins top .. top-7
+// Over nb bins counted from the top, the bin holding the kk-th largest
+// key: sh.bin (-1 when fewer than kk keys were counted) and sh.above, the
+// count of keys in the bins above it. Warp w sums the w-th run of nb/32
+// bins from the top (each lane one or two bins), warp 0 scans the 32 run
+// totals, and the warp whose run holds the key scans its own bins. Called
+// by all threads; ends synchronized.
+__device__ void pick_bin_wide(const int* hist, int nb, int kk,
+                              SelectShared& sh) {
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int lp = nb / 32 / 32;                 // bins a lane: 1 or 2
+  const int top = nb - 1 - (w * 32 + lane) * lp;   // this lane's first bin
   int local = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) local += hist[top - i];
+  for (int i = 0; i < lp; ++i) local += hist[top - i];
   int incl = local;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const int v = __shfl_up_sync(FULL, incl, off);
     if (lane >= off) incl += v;
   }
-  const int excl = incl - local;
-  const unsigned hit = __ballot_sync(FULL, excl < kk && kk <= incl);
-  if (hit == 0) {
-    if (lane == 0) *out_bin = -1;
-    return;
+  if (lane == 31) sh.run[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int v = sh.run[lane];
+    int rincl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, rincl, off);
+      if (lane >= off) rincl += u;
+    }
+    const unsigned hit = __ballot_sync(FULL, rincl - v < kk && kk <= rincl);
+    if (lane == 0) sh.run_sel = hit ? __ffs(hit) - 1 : -1;
+    if (hit && lane == __ffs(hit) - 1) sh.run_above = rincl - v;
   }
-  if (lane == __ffs(hit) - 1) {
-    int cum = excl;
-    for (int i = 0; i < 8; ++i) {
-      const int h = hist[top - i];
-      if (cum + h >= kk) {
-        *out_bin = top - i;
-        *out_above = cum;
-        break;
+  __syncthreads();
+  const int sel = sh.run_sel;
+  if (sel < 0) {
+    if (t == 0) sh.bin = -1;
+  } else if (w == sel) {
+    const int need = kk - sh.run_above;   // the need-th key of this run
+    const unsigned hit =
+        __ballot_sync(FULL, incl - local < need && need <= incl);
+    if (lane == __ffs(hit) - 1) {
+      int cum = sh.run_above + incl - local;
+      for (int i = 0; i < lp; ++i) {
+        const int h = hist[top - i];
+        if (cum + h >= kk) {
+          sh.bin = top - i;
+          sh.above = cum;
+          break;
+        }
+        cum += h;
       }
-      cum += h;
     }
   }
+  __syncthreads();
 }
 
-// tau for one query's block maxima bq[0..G): the kk-th largest valid one
-// minus eps, or -inf when fewer than kk are valid. Called by all threads.
-__device__ float block_threshold(const float* __restrict__ bq, int G, int kk,
-                                 float eps, SelectShared& sh) {
-  const int t = threadIdx.x;
+// tau over the block maxima bq[0..G) (shared or device memory): the kk-th
+// largest valid one minus eps, or -inf when fewer than kk are valid. Three
+// radix passes of 11, 11 and 10 bits. Called by all threads.
+__device__ float wide_threshold(const float* bq, int G, int kk, float eps,
+                                SelectShared& sh) {
+  const int t = threadIdx.x, lane = t & 31;
   uint32_t prefix = 0, mask = 0;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = t; b < 256; b += THREADS) sh.hist[b] = 0;
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int shift = p == 0 ? 21 : p == 1 ? 10 : 0;
+    const int nb = p == 2 ? 1024 : 2048;
+    for (int b = t; b < nb; b += THREADS) sh.hist[b] = 0;
     __syncthreads();
-    for (int g = t; g < G; g += THREADS) {
-      const float v = bq[g];
-      if (v > SENT_HALF) {
+    for (int g0 = 0; g0 < G; g0 += THREADS) {   // uniform trip count
+      const int g = g0 + t;
+      uint32_t bin = NO_BIN;
+      if (g < G) {
+        const float v = bq[g];
         const uint32_t u = key_of(v);
-        if ((u & mask) == prefix) atomicAdd(&sh.hist[(u >> shift) & 255], 1);
+        if (v > SENT_HALF && (u & mask) == prefix)
+          bin = (u >> shift) & (uint32_t)(nb - 1);
       }
+      // one atomic per distinct bin of the warp: the top bins are crowded
+      const unsigned peers = __match_any_sync(FULL, bin);
+      if (bin != NO_BIN && lane == __ffs(peers) - 1)
+        atomicAdd(&sh.hist[bin], __popc(peers));
     }
     __syncthreads();
-    if (t < 32) pick_bin(sh.hist, kk, &sh.bin, &sh.above);
-    __syncthreads();
+    pick_bin_wide(sh.hist, nb, kk, sh);
     const int bin = sh.bin;
     if (bin < 0) return -INFINITY;   // fewer than kk valid (first pass only)
     kk -= sh.above;
     prefix |= (uint32_t)bin << shift;
-    mask |= 255u << shift;
-    __syncthreads();        // everyone has read sh.bin before the next pass
+    mask |= (uint32_t)(nb - 1) << shift;
+    __syncthreads();   // everyone has read sh.bin before the next pass
   }
   return float_of(prefix) - eps;
 }
 
-// Admit the valid blocks at or above tau into sh.slots; returns how many
-// were admitted (more than S_SLOTS means overflow). Called by all threads.
-__device__ int admit_blocks(const float* __restrict__ bq, int G, float tau,
-                            SelectShared& sh) {
+// Appends `value` where `pred` holds to out[*counter ...] (the first `cap`
+// of them) with one atomic a warp. Called by every lane of the warp.
+template <class T>
+__device__ __forceinline__ void warp_append(bool pred, int* counter, T value,
+                                            T* out, int cap) {
+  const int lane = threadIdx.x & 31;
+  const unsigned votes = __ballot_sync(FULL, pred);
+  if (votes == 0) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(counter, __popc(votes));
+  base = __shfl_sync(FULL, base, 0);
+  const int pos = base + __popc(votes & ((1u << lane) - 1));
+  if (pred && pos < cap) out[pos] = value;
+}
+
+// The top k of cand[0..n) (n <= THREADS distinct keys) by rank: thread i
+// counts the keys above its own, all threads reading the same key at once,
+// and writes its key to that rank if it is below k; ranks past n are padded.
+// The same output as sort_emit, without the sort's log^2 barriers.
+__device__ void rank_emit(const unsigned long long* cand, int n, int k,
+                          float* __restrict__ out_s,
+                          int* __restrict__ out_i) {
   const int t = threadIdx.x;
-  if (t == 0) sh.count = 0;
-  __syncthreads();
-  for (int g = t; g < G; g += THREADS) {
-    const float v = bq[g];
-    if (v > SENT_HALF && v >= tau) {
-      const int s = atomicAdd(&sh.count, 1);
-      if (s < S_SLOTS) sh.slots[s] = g;
+  if (t < n) {
+    const unsigned long long mine = cand[t];
+    int rank = 0;
+    for (int j = 0; j < n; ++j) rank += cand[j] > mine;
+    if (rank < k) {
+      const float s = float_of((uint32_t)(mine >> 32));
+      const bool ok = s > SENT_HALF;
+      out_s[rank] = ok ? s : -INFINITY;
+      out_i[rank] = ok ? (int)~(uint32_t)mine : -1;
     }
+  } else if (t < k) {
+    out_s[t] = -INFINITY;
+    out_i[t] = -1;
   }
-  __syncthreads();
-  return sh.count;
 }
 
 // cand[0..n_cand) holds the caller's keys (written before the call, not yet
@@ -175,6 +231,17 @@ __device__ void sort_emit(unsigned long long* cand, int n_cand, int k,
     out_s[r] = ok ? s : -INFINITY;
     out_i[r] = ok ? (int)~(uint32_t)kv : -1;
   }
+}
+
+// the top k of the n distinct keys cand[0..n) (written and synchronised
+// before the call): by rank when they fit one thread each, else sorted
+__device__ __forceinline__ void emit_top_k(unsigned long long* cand, int n,
+                                           int k, float* __restrict__ out_s,
+                                           int* __restrict__ out_i) {
+  if (n <= THREADS)
+    rank_emit(cand, n, k, out_s, out_i);
+  else
+    sort_emit(cand, n, k, out_s, out_i);
 }
 
 }  // namespace rxsel

@@ -27,14 +27,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each kernel's launcher (see the .cu sources)
 _LAUNCH_ARGTYPES = {
     "bf_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "bf_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sq8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sq8_i8_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "sq8_select": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sq8_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                   _P],
     "ivf_seg_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+# other C functions a library exports: name -> (argtypes, restype)
+_EXTRA_FUNCS = {
+    "sq8_select": {"sq8_select_scratch_bytes": ([_I, _I], _L)},
 }
 
 _lock = threading.Lock()
@@ -135,6 +141,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    for fn_name, (argtypes, restype) in _EXTRA_FUNCS.get(name, {}).items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 

@@ -129,6 +129,21 @@ def sq8_scan_plain(q_alpha: torch.Tensor, codes: torch.Tensor,
             s.view(q_alpha.shape[0], -1, BLK).amax(dim=2))
 
 
+def bf16_limbs(x: torch.Tensor,
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's split of an fp32 q_alpha into three bf16 limbs (the kernel makes
+    the same split on the card, csrc/sq8_scan.cu): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest even.
+    Every difference is exact in fp32 and the limbs hold x's 24 significant
+    bits, so hi + mid + lo == x for 2^-110 <= |x| < 2^128 - 2^119 (where
+    bf16 rounds to infinity); below, lo falls into bf16's subnormals and
+    the sum is off by at most 2^-134."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    return hi, mid, (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+
+
 def sq8_scan(q_alpha: torch.Tensor, codes: torch.Tensor, sq_eff: torch.Tensor,
              shift: torch.Tensor, metric: VectorMetric, with_s: bool = True,
              ) -> tuple[torch.Tensor | None, torch.Tensor]:

@@ -6,7 +6,8 @@ reindexer_tpu/ops/pallas_select.py::select_sweep and the selection phase of
 
 K4 `sq8_select`: exact top-k from K3's quantized block maxima, scoring the
 admitted blocks' rows from the fp32 base (port of
-pallas_select.py::twinsweep_select_sq8; kernel source csrc/sq8_select.cu).
+pallas_select.py::twinsweep_select_sq8; kernel source csrc/sq8_select.cu,
+three kernels: admit per query, score per admitted block, emit per query).
 
 Selection contract, per query:
   tau   = kk-th largest block max among valid blocks (bmax > -5e29), minus
@@ -22,7 +23,10 @@ Selection contract, per query:
           smaller row; scores <= -5e29 come out as -inf / -1.
 K2 takes one more step before its sort: only the admitted rows with
 S >= tau, at least k of them, can be in the top k (each of the k blocks
-whose max is >= tau holds one), so it sorts those alone.
+whose max is >= tau holds one), so it sorts those alone. K4 ranks only
+the admitted rows at or above the k-th largest of their blocks' exact
+maxima (k blocks hold a row there each); a flagged query's K4 result is
+-inf / -1.
 
 The composed scans, each over groups of <= 64 queries:
   knn_scan_fused       K1 + K2, exact fp32 (replaces knn_scan_fused_v2/v3/v4)
@@ -35,7 +39,8 @@ The composed scans, each over groups of <= 64 queries:
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (`*_plain`) for CPU tensors; any other device raises.
-`launches` (K2) and `sq8_select_launches` (K4) count kernel launches only.
+`launches` (K2) and `sq8_select_launches` (K4) count kernel launches only
+(K4: one a call of its launcher, which runs its three kernels).
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ from .scan import (BLK, SENT_HALF, _cuda_or_cpu, bf_scan, score_factor,
 S_SLOTS = 128          # admitted-block capacity; also the largest k
 MARGIN = 4             # K4's extra blocks: the largest k there is 124
 GROUP = 64             # queries per scan + select pair (bounds S to 64 x N)
+SELECT_MAX_Q = 4096    # K4's queries a launch (it stages a byte a query
+#                        for each block it scores)
 FAST_EPS_SIGMA = 12.0  # tail multiplier of the "fast" eps bound
 
 launches = _build.Counter()              # K2 bf_select
@@ -205,24 +212,33 @@ def sq8_select(bmax: torch.Tensor, eps: torch.Tensor, q: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: (scores f32[Q, k], ids i32[Q, k], flag f32[Q]) for bmax f32[Q,
     N/64] (K3's, shifted), eps f32[Q], q f32[Q, D], base f32[N, D], sq_eff
-    f32[N]; 1 <= k <= 124. Scores are fac * q.b - sq_eff (L2 lacks -|q|^2)."""
+    f32[N]; 1 <= k <= 124. Scores are fac * q.b - sq_eff (L2 lacks -|q|^2).
+    More than SELECT_MAX_Q queries run SELECT_MAX_Q at a time."""
     _check_sq8_select(bmax, eps, q, base, sq_eff, k)
     if not _cuda_or_cpu("sq8_select", base.device):
         return sq8_select_plain(bmax, eps, q, base, sq_eff, k, metric)
+    n_q, d = q.shape
+    if n_q > SELECT_MAX_Q:
+        parts = [sq8_select(bmax[i:i + SELECT_MAX_Q], eps[i:i + SELECT_MAX_Q],
+                            q[i:i + SELECT_MAX_Q], base, sq_eff, k, metric)
+                 for i in range(0, n_q, SELECT_MAX_Q)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     bmax, eps, q = bmax.contiguous(), eps.contiguous(), q.contiguous()
     base, sq_eff = base.contiguous(), sq_eff.contiguous()
     lib = _build.load("sq8_select")
-    n_q, d = q.shape
     n = base.shape[0]
-    out_s = torch.empty((n_q, k), dtype=torch.float32, device=base.device)
-    out_i = torch.empty((n_q, k), dtype=torch.int32, device=base.device)
-    flag = torch.empty((n_q,), dtype=torch.float32, device=base.device)
-    with torch.cuda.device(base.device):
+    dev = base.device
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    flag = torch.empty((n_q,), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.sq8_select_scratch_bytes(n_q, n),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
         code = lib.sq8_select_launch(
             bmax.data_ptr(), eps.data_ptr(), q.data_ptr(), base.data_ptr(),
             sq_eff.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            flag.data_ptr(), n_q, n, d, k, score_factor(metric),
-            torch.cuda.current_stream(base.device).cuda_stream)
+            flag.data_ptr(), scratch.data_ptr(), n_q, n, d, k,
+            score_factor(metric), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, "sq8_select", code)
     sq8_select_launches.add()
     return out_s, out_i, flag

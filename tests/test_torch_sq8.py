@@ -33,10 +33,13 @@ from reindexer_tpu_torch.index.vector.brute_force import BruteForceIndex
 from reindexer_tpu_torch.index.vector.quantization import (QuantizedStore,
                                                            knn_scan_quantized)
 from reindexer_tpu_torch.ops.hnsw_kernels import exact_rescore
-from reindexer_tpu_torch.ops.scan import (SENT_HALF, SQ_EFF_BIG,
-                                          sq8_i8_scan, sq8_i8_scan_plain,
-                                          sq8_scan, sq8_scan_plain)
-from reindexer_tpu_torch.ops.select import (knn_scan_approx_sq8,
+from reindexer_tpu_torch.ops.scan import (BLK, SENT_HALF, SQ_EFF_BIG,
+                                          bf16_limbs, sq8_i8_scan,
+                                          sq8_i8_scan_plain, sq8_scan,
+                                          sq8_scan_plain)
+from reindexer_tpu_torch.ops import select as select_mod
+from reindexer_tpu_torch.ops.select import (MARGIN, S_SLOTS,
+                                            knn_scan_approx_sq8,
                                             knn_scan_sq8, sq8_select,
                                             sq8_select_plain)
 
@@ -73,18 +76,20 @@ def _fac(metric):
 
 
 def _sq8_inputs(seed, n_q, metric, clustered=False, n=N, d=D,
-                invalid=(7,)):
+                invalid=(7,), cluster_rows=64, spread=10.0):
     """q, base, sq_eff and the 0.001 / 0.999 quantile grid with its codes
     and per-dimension error bounds, as numpy. Invalid rows are zeroed (the
     JAX kernels' contract) and carry sq_eff = SQ_EFF_BIG (the port's).
-    clustered: block-coherent clusters, each 64-row block around its own
-    center (tests/test_pallas_select.py:66-79)."""
+    clustered: block-coherent clusters, each run of cluster_rows rows around
+    its own center, centers `spread` times the noise's 10-fold
+    (tests/test_pallas_select.py:66-79 with 64-row runs)."""
     rng = np.random.default_rng(seed)
     if clustered:
-        centers = rng.normal(size=(n // 64, d)).astype(np.float32) * 10.0
-        base = (np.repeat(centers, 64, axis=0)
+        n_cl = n // cluster_rows
+        centers = rng.normal(size=(n_cl, d)).astype(np.float32) * spread
+        base = (np.repeat(centers, cluster_rows, axis=0)
                 + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
-        q = (centers[rng.integers(0, n // 64, size=n_q)]
+        q = (centers[rng.integers(0, n_cl, size=n_q)]
              + 0.3 * rng.normal(size=(n_q, d))).astype(np.float32)
     else:
         base = rng.normal(size=(n, d)).astype(np.float32)
@@ -154,6 +159,25 @@ def test_sq8_scan_bmax_only_matches_sweep_bmax_sq8(metric):
     s, bm = sq8_scan(*_t(qa, codes, sq, shift), metric, with_s=False)
     assert s is None
     assert (np.abs(bm.numpy() - want) <= _k3_tol(qa, metric)[:, None]).all()
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -100, 1e-3, 1.0, 1e5, 2.0 ** 120])
+def test_bf16_limbs_reconstruct_q_alpha(scale):
+    """K3's split of q_alpha into three bf16 limbs (ops/scan.py's copy of
+    the kernel's): hi + mid + lo equals the fp32 value bit for bit, over
+    the range K3 is fed, and each limb is a bf16."""
+    rng = np.random.default_rng(29)
+    mag = (0.5 + np.abs(rng.normal(size=20000))) * scale   # >= scale / 2
+    x = torch.from_numpy((np.sign(rng.normal(size=20000)) * mag).astype(
+        np.float32))
+    x[:4] = torch.tensor([0.0, -0.0, scale, -scale])
+    limbs = bf16_limbs(x)
+    assert all(limb.dtype == torch.bfloat16 for limb in limbs)
+    hi, mid, lo = (limb.to(torch.float32) for limb in limbs)
+    assert torch.equal((hi + mid) + lo, x)
+    assert torch.equal(hi, x.to(torch.bfloat16).to(torch.float32))
+    # two limbs (TPU's _dot2 keeps 16 bits) do not reconstruct it
+    assert not torch.equal(hi + mid, x)
 
 
 # --- K5 plain + K2 plain vs the JAX approximate SQ8 kernel -----------------
@@ -776,12 +800,36 @@ def test_cuda_sq8_kernels_match_plain(cuda_device, metric):
     qa = (q * alpha).astype(np.float32)
     shift = (_fac(metric) * (q @ lo)).astype(np.float32)
     args = _t(qa, codes, sq, shift, device=cuda_device)
-    for with_s in (True, False):
-        s, bm = sq8_scan(*args, metric, with_s=with_s)
-        s_p, bm_p = sq8_scan_plain(*args, metric, with_s=with_s)
-        torch.testing.assert_close(bm, bm_p, rtol=1e-5, atol=1e-3)
-        if with_s:
-            torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-3)
+    # K3 sums on the tensor cores, in another order than the plain version's
+    # fp32 matmul. Here scores are summed from up to ~1e5, where an fp32 ulp
+    # is ~0.008: the two differ by more than atol 1e-3, and the plain
+    # version is the further of the two from the float64 product (it is off
+    # by more than 1e-3 at thousands of scores). So K3 is held to the
+    # float64 product: within 8 fp32 ulps of the summed magnitude, and score
+    # by score no further from it than the plain version's same score plus
+    # 2 ulps (each bmax-only block max likewise against the plain version's,
+    # plus 2 ulps of the block's largest magnitude); its bmax is its S's
+    # block max in both modes.
+    s, bm = sq8_scan(*args, metric)
+    s_p, _ = sq8_scan_plain(*args, metric)
+    _, bm_only = sq8_scan(*args, metric, with_s=False)
+    _, bm_p = sq8_scan_plain(*args, metric, with_s=False)
+    assert _k3_ulps(s, *args, _fac(metric)) <= 8.0
+    qa64, c64, sq64, sh64 = (x.double() for x in args)
+    exact = (_fac(metric) * (qa64 @ c64.T) - sq64[None, :]
+             + sh64[:, None]).clamp_min(-1e30)
+    ulps2 = 2.0 * torch.finfo(torch.float32).eps * (
+        _fac(metric) * (qa64.abs() @ c64.T) + sq64.abs()[None, :]
+        + sh64.abs()[:, None])
+    valid = args[2] < SQ_EFF_BIG / 2
+    e_k, e_p = (s.double() - exact).abs(), (s_p.double() - exact).abs()
+    assert (e_k <= e_p + ulps2)[:, valid].all()
+    exact_b = exact.view(64, -1, BLK).amax(dim=2)
+    assert ((bm_only.double() - exact_b).abs()
+            <= (bm_p.double() - exact_b).abs()
+            + ulps2.view(64, -1, BLK).amax(dim=2)).all()
+    assert torch.equal(bm, s.view(64, -1, BLK).amax(dim=2))
+    assert torch.equal(bm_only, bm)
     qf, qa_t = _t(q, qa, device=cuda_device)
     s_q = qa_t.abs().amax(1).clamp_min(1e-30) / 127.0
     qa_i8 = torch.round(qa_t / s_q[:, None]).to(torch.int8)
@@ -826,3 +874,236 @@ def test_cuda_sq8_engine_matches_cpu(cuda_device, mode):
             assert abs(rank_of[i] - edge) <= 1e-4 * abs(edge) + 1e-4, i
         np.testing.assert_allclose(r_gpu.ranks, r_cpu.ranks, rtol=1e-4,
                                    atol=1e-4)
+
+
+# K3 on the card: every path of the kernel. Q = 1, 5 (N of a wgmma 8), 64,
+# 130 (three query groups); D = 16, 128, 256 through tensor maps, 37 and 100
+# through the producer's device-memory loads, 520 with the limbs split per
+# window of D; N = 64 x 37 rows, so the persistent CTAs end on an odd tile.
+K3_DS = [16, 37, 100, 128, 256, 520]
+
+
+def _k3_case(seed, n_q, d, n=64 * 37):
+    rng = np.random.default_rng(seed)
+    qa = (0.02 * rng.normal(size=(n_q, d))).astype(np.float32)
+    codes = rng.integers(0, 256, size=(n, d), dtype=np.uint8)
+    sq = (100.0 * rng.random(n)).astype(np.float32)
+    sq[rng.choice(n, size=20, replace=False)] = SQ_EFF_BIG   # invalid rows
+    shift = rng.normal(size=n_q).astype(np.float32)
+    return qa, codes, sq, shift
+
+
+def _k3_ulps(s, qa, codes, sq, shift, fac):
+    """The largest error of s against the float64 product, in fp32 ulps of
+    the magnitude a score is summed from: fac * sum_d |q_alpha_d code_d| +
+    |sq_eff| + |shift|."""
+    q64, c64 = qa.double(), codes.double()
+    want = (fac * (q64 @ c64.T) - sq.double()[None, :]
+            + shift.double()[:, None]).clamp_min(-1e30)
+    mag = (fac * (q64.abs() @ c64.T) + sq.double().abs()[None, :]
+           + shift.double().abs()[:, None])
+    err = (s.double() - want).abs()
+    return float((err / (torch.finfo(torch.float32).eps * mag)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", K3_DS)
+@pytest.mark.parametrize("n_q", [1, 5, 64, 130])
+def test_cuda_sq8_scan_both_modes(cuda_device, n_q, d, metric):
+    """K3 against its plain version in S mode and bmax-only mode (rtol
+    1e-5, atol 1e-3), within 8 fp32 ulps of the float64 product, with its
+    bmax the block max of its S and the same in both modes."""
+    qa, codes, sq, shift = _t(*_k3_case(30, n_q, d), device=cuda_device)
+    s, bm = sq8_scan(qa, codes, sq, shift, metric)
+    s_p, bm_p = sq8_scan_plain(qa, codes, sq, shift, metric)
+    none, bm_only = sq8_scan(qa, codes, sq, shift, metric, with_s=False)
+    assert none is None
+    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(bm, bm_p, rtol=1e-5, atol=1e-3)
+    assert torch.equal(bm, s.view(n_q, -1, BLK).amax(dim=2))
+    assert torch.equal(bm_only, bm)
+    assert _k3_ulps(s, qa, codes, sq, shift, _fac(metric)) <= 8.0
+    assert (s[:, sq >= SQ_EFF_BIG / 2] <= SENT_HALF).all()
+
+
+@pytest.mark.cuda
+def test_cuda_sq8_scan_one_limb_fails_the_ulps_check(cuda_device):
+    """The control of the precision check: a product of one bf16 limb of
+    q_alpha (a plain bf16 product) misses 8 ulps by far."""
+    qa, codes, sq, shift = _t(*_k3_case(31, 64, 128), device=cuda_device)
+    hi = bf16_limbs(qa)[0].to(torch.float32)
+    s = (2.0 * (hi.double() @ codes.double().T) - sq.double()[None, :]
+         + shift.double()[:, None]).float()
+    assert _k3_ulps(s, qa, codes, sq, shift, 2.0) > 64.0
+
+
+def _k4_check(o, p, exact, k):
+    """K4 (o) against its plain version (p): the same flags; a flagged
+    query's result is -inf / -1; an unflagged one has the plain version's
+    scores (rtol 1e-4, atol 1e-3) and ids up to near-ties of the float64
+    scores at the k-th."""
+    flag = o[2].cpu().numpy() > 0
+    assert (flag == (p[2].cpu().numpy() > 0)).all()
+    o_s, o_i = o[0].cpu().numpy(), o[1].cpu().numpy()
+    p_s, p_i = p[0].cpu().numpy(), p[1].cpu().numpy()
+    assert (o_i[flag] == -1).all() and np.isneginf(o_s[flag]).all()
+    ok = ~flag
+    np.testing.assert_allclose(o_s[ok], p_s[ok], rtol=1e-4, atol=1e-3)
+    for b in np.flatnonzero(ok):
+        kth = float(p_s[b, -1])
+        if np.isfinite(kth):
+            _tied_or_equal([i for i in o_i[b].tolist() if i >= 0],
+                           [i for i in p_i[b].tolist() if i >= 0],
+                           lambda r: exact[b, r], kth,
+                           1e-5 * abs(kth) + 1e-3)
+        else:
+            assert (o_i[b] == p_i[b]).all()
+    return flag
+
+
+def _k4_case(seed, n_q, metric, clustered, d=D, n=5 * 8192):
+    """K4's inputs on the card, from the seeded SQ8 grid: K3's shifted
+    block maxima, the certified eps, q, base, sq_eff; and the float64 exact
+    scores. Clustered: clusters of 128 blocks (8,192 rows) with centers at 3
+    (chip_smoke.py's layout), so a query admits its own cluster's blocks,
+    at most 128, even at k = 124."""
+    q, base, sq, codes, lo, alpha, err, _ = _sq8_inputs(
+        seed, n_q, metric, clustered=clustered, n=n, d=d, invalid=(7, 300),
+        cluster_rows=S_SLOTS * BLK, spread=3.0)
+    fac = _fac(metric)
+    qa = (q * alpha).astype(np.float32)
+    shift = (fac * (q @ lo)).astype(np.float32)
+    eps = (fac * (np.abs(q) * err).sum(1)).astype(np.float32)
+    qa_t, codes_t, sq_t, shift_t, eps_t, q_t, base_t = _t(
+        qa, codes, sq, shift, eps, q, base, device=torch.device("cuda", 0))
+    _, bm = sq8_scan(qa_t, codes_t, sq_t, shift_t, metric, with_s=False)
+    exact = (fac * (q.astype(np.float64) @ base.astype(np.float64).T)
+             - sq.astype(np.float64))
+    return (bm, eps_t, q_t, base_t, sq_t), exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 100, 124])
+@pytest.mark.parametrize("n_q", [1, 64, 130])
+@pytest.mark.parametrize("clustered", [True, False])
+def test_cuda_sq8_select_matches_plain(cuda_device, clustered, n_q, k):
+    """Clustered data: no query flags, and K4 gives the plain version's
+    top k. Isotropic data: the certified eps admits more than 128 blocks,
+    the same queries flag on both sides, and K4's flagged rows are
+    -inf / -1."""
+    metric = VectorMetric.L2
+    args, exact = _k4_case(32 + n_q, n_q, metric, clustered)
+    o = sq8_select(*args, k, metric)
+    p = sq8_select_plain(*args, k, metric)
+    flag = _k4_check(o, p, exact, k)
+    assert not flag.any() if clustered else flag.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [37, 100, 256])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_sq8_select_other_widths(cuda_device, d, metric):
+    """K4's other scoring paths: D % 4 != 0 (the CTA loads each block
+    itself), D % 32 != 0 (a last TMA box part past D) and D = 256 (a block
+    scored in slices of 32 rows)."""
+    args, exact = _k4_case(33, 64, metric, True, d=d)
+    o = sq8_select(*args, 100, metric)
+    flag = _k4_check(o, sq8_select_plain(*args, 100, metric), exact, 100)
+    assert not flag.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 64, 130])
+def test_cuda_sq8_select_mass_ties_flag(cuda_device, n_q):
+    """Every block holds the same rows: all block maxima tie, every block is
+    admitted, and every query flags on both sides."""
+    rng = np.random.default_rng(34)
+    d, n = 16, 64 * 200
+    block = rng.normal(size=(BLK, d)).astype(np.float32)
+    base = np.tile(block, (n // BLK, 1))
+    q = rng.normal(size=(n_q, d)).astype(np.float32)
+    sq = (base * base).sum(1).astype(np.float32)
+    exact = 2.0 * q.astype(np.float64) @ base.T.astype(np.float64) - sq
+    bm = np.repeat(exact.reshape(n_q, -1, BLK).max(2), 1, axis=1)
+    args = _t(bm.astype(np.float32), np.zeros(n_q, np.float32), q, base, sq,
+              device=cuda_device)
+    o = sq8_select(*args, 100, VectorMetric.L2)
+    p = sq8_select_plain(*args, 100, VectorMetric.L2)
+    assert _k4_check(o, p, exact, 100).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 100, 124])
+@pytest.mark.parametrize("n_q", [1, 64, 130])
+def test_cuda_sq8_select_fewer_than_k_pass(cuda_device, n_q, k):
+    """eps = 0 on a tie-heavy set (blocks in identical pairs) whose block
+    maxima lie above every exact score, as a grid's rounding can lift them:
+    no row reaches tau, fewer than k pass. K4 orders the admitted rows by
+    their exact scores whatever tau is, so its top k still equals the plain
+    version's."""
+    rng = np.random.default_rng(35)
+    d, n = 32, 64 * 300
+    half = rng.normal(size=(n // 2, d)).astype(np.float32)
+    base = np.concatenate([half.reshape(-1, BLK, d)] * 2, axis=1).reshape(
+        n, d)
+    q = rng.normal(size=(n_q, d)).astype(np.float32)
+    sq = (base * base).sum(1).astype(np.float32)
+    exact = 2.0 * q.astype(np.float64) @ base.T.astype(np.float64) - sq
+    lift = float(exact.max() - exact.min()) + 1.0
+    bm = exact.reshape(n_q, -1, BLK).max(2) + lift
+    args = _t(bm.astype(np.float32), np.zeros(n_q, np.float32), q, base, sq,
+              device=cuda_device)
+    o = sq8_select(*args, k, VectorMetric.L2)
+    p = sq8_select_plain(*args, k, VectorMetric.L2)
+    flag = _k4_check(o, p, exact, k)
+    assert not flag.any()
+
+
+class _ExactL2:
+    """exact[b, r]: the L2 score 2 q_b . b_r - sq_eff_r in float64, from
+    the card's tensors, one row at a time (the whole table would not fit
+    the host)."""
+
+    def __init__(self, q, base, sq):
+        self.q, self.base, self.sq = q, base, sq
+
+    def __getitem__(self, br):
+        b, r = br
+        return float(2.0 * (self.q[b].double() @ self.base[r].double())
+                     - self.sq[r].double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [64, 130])
+def test_cuda_sq8_select_large_index(cuda_device, n_q):
+    """A large index: 6,000,000 rows x 768 (18.4 GB of fp32 base, 93,750
+    blocks), rows of one norm so that the queries' best blocks hardly
+    overlap. Each query admits its k + 4 best blocks (eps 0, bmax the block
+    maxima of the fp32 scores): over 6,000 blocks are listed, so a scoring
+    CTA has more items than one staged chunk of metadata. K4 runs and
+    equals its plain version."""
+    n, d, k = 6_000_000, 768, 100
+    gen = torch.Generator(device=cuda_device).manual_seed(36)
+    base = torch.randn(n, d, generator=gen, device=cuda_device)
+    base *= (d ** 0.5) / base.norm(dim=1, keepdim=True)
+    q = torch.randn(n_q, d, generator=gen, device=cuda_device)
+    sq = (base * base).sum(dim=1)
+    bm = (2.0 * (q @ base.T) - sq).view(n_q, -1, BLK).amax(dim=2)
+    args = (bm, torch.zeros(n_q, device=cuda_device), q, base, sq)
+    o = sq8_select(*args, k, VectorMetric.L2)
+    p = sq8_select_plain(*args, k, VectorMetric.L2)
+    assert not _k4_check(o, p, _ExactL2(q, base, sq), k).any()
+
+
+@pytest.mark.cuda
+def test_cuda_sq8_select_splits_many_queries(cuda_device, monkeypatch):
+    """More than SELECT_MAX_Q queries run SELECT_MAX_Q at a time, a K4
+    launch each, with the result of one launch over all of them."""
+    args, _ = _k4_case(37, 130, VectorMetric.L2, True)
+    whole = sq8_select(*args, 100, VectorMetric.L2)
+    monkeypatch.setattr(select_mod, "SELECT_MAX_Q", 64)
+    before = select_mod.sq8_select_launches.value
+    parts = sq8_select(*args, 100, VectorMetric.L2)
+    assert select_mod.sq8_select_launches.value - before == 3
+    assert all(torch.equal(a, b) for a, b in zip(whole, parts))
