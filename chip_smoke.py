@@ -28,7 +28,8 @@ Phases, in order; any failure raises, so the exit code is not 0:
      modes at 64 queries and 1, within K3_RTOL / K3_ATOL of its plain
      version and within K3_ULPS fp32 ulps of the summed magnitude against a
      float64 product (and the same check shown to reject a product of one
-     bf16 limb of q_alpha); K5 bit for bit and K5 + K2's ids; K4 on
+     bf16 limb of q_alpha); K5 bit for bit at 1, 5 and 64 queries (and at
+     D = 100 and 1,536) and K5 + K2's ids; K4 on
      clustered data at 64 queries and 1 (no flag, same top-k) and on
      isotropic data (the same queries flag). K3 (both modes, 64 queries and
      1, and at 1M rows) and K4 (64 queries and 1) are timed three times
@@ -53,9 +54,10 @@ Phases, in order; any failure raises, so the exit code is not 0:
      _train); every row's list checked against its float64-nearest
      centroid;
   7. K6 ivf_seg_scan vs its plain version on the card, on the segment plans
-     of that index at batch 1 x nprobe 8 and batch 16 x nprobe 128 (ragged
+     of that index at batch 1 x nprobe 8, 16 x 128 and 256 x 128 (ragged
      last blocks and count-0 padding segments), in cosine and in L2, within
-     K6_ULPS fp32 ulps of the summed magnitude, with device times;
+     K6_ULPS fp32 ulps of the summed magnitude, with device times (three,
+     and CUDA events) beside the bound over the unique probed rows;
   8. the IVF main path on that index: 16 queries, k=100, nprobe 8 to 128,
      select_batch and single select, the segment route forced, the masked
      sweep forced and the router's choice. Ids equal a float64 oracle over
@@ -107,6 +109,8 @@ RANK_RTOL = 1e-4
 APPROX_TIE_RTOL = 1e-5            # K5 is bit-equal to its plain version;
 #                                   K3's fp32 sums round in another order
 APPROX_MIN_RECALL = 0.9
+K5_QS = (1, 5, 64)                # K5 held bit-equal at these batches,
+K5_OTHER_DS = (100, 1536)         # and at an odd and a wide width
 CLUSTER_ROWS = 7168               # rows per cluster: 112 blocks of 64
 IVF_N, IVF_D, IVF_NLIST, IVF_BATCH = 1_000_000, 768, 1024, 16
 IVF_NPROBES = (8, 16, 32, 64, 128)
@@ -116,6 +120,7 @@ IVF_ROUTES = {"segments": "1", "sweep": "0", "router": None}
 IVF_ROUTE_BATCHES = (1, 16, 32, 64, 128, 256)   # the router table, PERF.md
 K6_ULPS = 8       # K6 vs its plain version: fp32 ulps of sum |q_d b_d|;
 #                   a bf16 or TF32 rounding of an operand is ~1e3x more
+K6_POINTS = ((1, 8), (IVF_BATCH, 128), (256, 128))   # (batch, nprobe)
 ASSIGN_TIE_RTOL = 1e-5            # f32 argmax vs f64 argmax near-ties
 
 
@@ -261,9 +266,10 @@ def phase_build() -> None:
         secs, out = _build.build_info[name]
         ptxas = [ln.strip() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]
-        # the wgmma kernels (K1, K3): ptxas's C7517 / C7518 warnings say it
-        # serialized the wgmmas (their overlap lost), not that they are wrong
-        serial = sum("C7517" in ln or "C7518" in ln
+        # the wgmma kernels (K1, K3, K5): ptxas's C7515 / C7517 / C7518
+        # warnings say it serialized the wgmmas (their overlap lost), not
+        # that they are wrong
+        serial = sum(any(c in ln for c in ("C7515", "C7517", "C7518"))
                      for ln in out.splitlines())
         log(f"[build] {name}: nvcc {secs:.2f} s, {serial} wgmma "
             f"serialization warnings {' | '.join(ptxas)}")
@@ -453,7 +459,7 @@ def phase_kernels(dev) -> dict:
             f"{t['k1_lib']:.4f}, bound {k1_bound['bound_ms']:.4f} by "
             f"{k1_bound['bound_by']}); K2 equals its plain version, ms "
             f"{t['k2']:.4f} (plain {t['k2_plain']:.4f}, torch.topk "
-            f"{t['k2_lib']:.4f}, bound {k2_bound['bound_ms']:.4f} by "
+            f"{t['k2_lib']:.4f}, bound {k2_bound['bound_ms']:.3g} by "
             f"{k2_bound['bound_by']}, {adm // BLK} admitted blocks)")
         if n == MAIN_N and n_q == MAIN_Q and metric == VectorMetric.L2:
             stats["bf_scan"].update(ms=t["k1"], plain_ms=t["k1_plain"],
@@ -759,14 +765,16 @@ def phase_sq8_kernels(dev) -> dict:
             f"{k3_u1:.3f} at Q=1 (bound {K3_ULPS}), err vs plain "
             f"{max(k3_err, k3_err1):.3g} (rtol {K3_RTOL}, atol {K3_ATOL}), "
             f"bmax-only bmax bit-equal to S mode's{note}")
-        # K5, and K5 + K2
+        # K5 bit-equal at Q = 1, 5 (a wgmma N of 8) and 64; K5 + K2
         qa_i8, sqscale, _ = quantize_queries(q, st.lo, st.alpha, metric)
-        s5, b5 = sq8_i8_scan(qa_i8, sqscale, codes, sq_eff)
-        s5_p, b5_p = sq8_i8_scan_plain(qa_i8, sqscale, codes, sq_eff)
-        torch.cuda.synchronize()
-        if not (torch.equal(s5, s5_p) and torch.equal(b5, b5_p)):
-            raise AssertionError(f"K5 is not bit-equal to its plain version "
-                                 f"at {tag}")
+        for nq in K5_QS:
+            a5 = (qa_i8[:nq], sqscale[:nq], codes, sq_eff)
+            s5, b5 = sq8_i8_scan(*a5)
+            s5_p, b5_p = sq8_i8_scan_plain(*a5)
+            torch.cuda.synchronize()
+            if not (torch.equal(s5, s5_p) and torch.equal(b5, b5_p)):
+                raise AssertionError(f"K5 is not bit-equal to its plain "
+                                     f"version at {tag} Q={nq}")
         o = bf_select(s5, b5, zeros, K)
         p = bf_select_plain(s5_p, b5_p, zeros, K)
         s_host = s5_p.cpu().numpy()
@@ -848,11 +856,14 @@ def phase_sq8_kernels(dev) -> dict:
                       2 * per_q * BLK * MAIN_D, "fp32")
             return b, per_q, uniq
 
+        def k5_bound(nq):
+            return bound(n * MAIN_D + 4 * n + nq * MAIN_D
+                         + 4 * (nq + nq * n + nq * g),
+                         2 * nq * n * MAIN_D, "int8")
+
         bounds = {"k3": k3_bound(MAIN_Q, False), "k3_s": k3_bound(MAIN_Q, True),
                   "k3_q1": k3_bound(1, False), "k3_s_q1": k3_bound(1, True),
-                  "k5": bound(n * MAIN_D + 4 * n + MAIN_Q * MAIN_D
-                              + 4 * (MAIN_Q + MAIN_Q * n + MAIN_Q * g),
-                              2 * MAIN_Q * n * MAIN_D, "int8")}
+                  "k5": k5_bound(MAIN_Q), "k5_q1": k5_bound(1)}
         (bounds["k4"], per_q, uniq), (bounds["k4_q1"], per_q1, _) = (
             k4_bound(MAIN_Q), k4_bound(1))
         # times: three of each of K3 (both modes, Q = 64 and 1) and K4 (Q =
@@ -881,7 +892,10 @@ def phase_sq8_kernels(dev) -> dict:
                      qa_i8, sqscale, codes, sq_eff)),
                  "k4": device_ms(lambda: sq8_select_plain(
                      *k4_args[MAIN_Q]))}
-        t5 = device_ms(lambda: sq8_i8_scan(qa_i8, sqscale, codes, sq_eff))
+        t["k5"] = timer(lambda: sq8_i8_scan(qa_i8, sqscale, codes, sq_eff))
+        if n == MAIN_N:
+            t["k5_q1"] = timer(lambda: sq8_i8_scan(
+                qa_i8[q1], sqscale[q1], codes, sq_eff))
         k4_split, _ = profile_device(lambda: sq8_select(*k4_args[MAIN_Q]), 20)
         flag_args = (bq, eps["cert"], q, base, sq_eff, K, metric)
         flag_split, _ = profile_device(lambda: sq8_select(*flag_args), 20)
@@ -896,9 +910,11 @@ def phase_sq8_kernels(dev) -> dict:
             f"{k3_line('k3_s')}, plain {plain['k3_s']:.4f}"
             + (f"; at Q=1 bmax-only {k3_line('k3_q1')}, S mode "
                f"{k3_line('k3_s_q1')}" if n == MAIN_N else ""))
-        log(f"[sq8 kernels] {tag}: K5 bit-equal, K5 + K2 ids match up to "
-            f"ties, ms {t5:.4f} (plain {plain['k5']:.4f}, bound "
-            f"{bounds['k5']['bound_ms']:.4f} by {bounds['k5']['bound_by']})")
+        log(f"[sq8 kernels] {tag}: K5 (int8 wgmma) bit-equal at Q="
+            f"{', '.join(map(str, K5_QS))}, K5 + K2 ids match up to ties; K5 "
+            f"device ms at Q={MAIN_Q} {k3_line('k5')}, plain "
+            f"{plain['k5']:.4f}"
+            + (f"; at Q=1 {k3_line('k5_q1')}" if n == MAIN_N else ""))
         log(f"[sq8 kernels] {tag}: K4 isotropic flags cert "
             f"{flagged['cert']}/{MAIN_Q}, fast {flagged['fast']}/{MAIN_Q} "
             f"(same queries as plain), flagged batch device ms "
@@ -915,13 +931,33 @@ def phase_sq8_kernels(dev) -> dict:
             # K5's u8 codes need a conversion or a shift first, K4 is a
             # gather plus a rescore
             for name, key, ms in (("sq8_scan", "k3", t["k3"][1]),
-                                  ("sq8_i8_scan", "k5", t5),
+                                  ("sq8_i8_scan", "k5", t["k5"][1]),
                                   ("sq8_select", "k4", t["k4"][1])):
                 stats[name].update(ms=ms, plain_ms=plain[key],
                                    library_ms=None, **bounds[key])
         del keeper, st, ckeeper, cst, codes, sq_eff, qa, qa_i8, bq, cbq
         del k4_args, flag_args
         torch.cuda.empty_cache()
+    # K5 at an odd width (codes a tensor map cannot take: the producer's
+    # device-memory loads) and a wide one (the queries staged in two windows
+    # of D; past 1,032 dimensions the plain version sums in float64)
+    for d in K5_OTHER_DS:
+        codes = torch.randint(0, 256, (MAIN_N // 2, d), dtype=torch.uint8,
+                              device=dev)
+        qa_i8 = torch.randint(-127, 128, (MAIN_Q, d), dtype=torch.int8,
+                              device=dev)
+        sqscale = 1e-4 * torch.rand(MAIN_Q, device=dev) + 1e-4
+        sq_eff = 100.0 * torch.rand(MAIN_N // 2, device=dev)
+        for nq in K5_QS:
+            a5 = (qa_i8[:nq], sqscale[:nq], codes, sq_eff)
+            got, want = sq8_i8_scan(*a5), sq8_i8_scan_plain(*a5)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"K5 is not bit-equal to its plain "
+                                     f"version at D={d} Q={nq}")
+        log(f"[sq8 kernels] N={MAIN_N // 2} D={d}: K5 bit-equal at Q="
+            f"{', '.join(map(str, K5_QS))}")
+        del codes, qa_i8, got, want
     return stats
 
 
@@ -1206,7 +1242,7 @@ def phase_ivf_kernel(ix, q, dev) -> dict:
     from reindexer_tpu_torch.ops.ivf_kernels import (SEG_BLK, scan_segments,
                                                      scan_segments_plain)
     stats = {"max_abs_err": 0.0}
-    for n_b, nprobe in ((1, 8), (IVF_BATCH, 128)):
+    for n_b, nprobe in K6_POINTS:
         probes = ix._probe_host(q[:n_b], nprobe)
         starts, qids, counts = ix._segment_plan(probes)
         qd = torch.from_numpy(q[:n_b]).to(dev)
@@ -1235,15 +1271,9 @@ def phase_ivf_kernel(ix, q, dev) -> dict:
             raise AssertionError("the segment plan has no ragged or no "
                                  "padding segment")
         t = device_ms3(lambda: scan_segments(*args))
-        # the same segments in list order (by start), so that the queries
-        # probing a list read it one after another
-        order = torch.argsort(starts, stable=True)
-        by_list = (starts[order], qids[order], counts[order]) + args[3:]
-        t_list = device_ms(lambda: scan_segments(*by_list))
         # CUDA events around bursts of calls: a second clock beside the
-        # profiler's (launch overhead is far below a call here)
-        ev, ev_list = (cuda_time_ms(lambda a=a: scan_segments(*a), reps=5)
-                       for a in (args, by_list))
+        # profiler's (launch overhead is far below a call here but at 1 x 8)
+        ev = cuda_time_ms(lambda: scan_segments(*args), reps=5)
         plain_ms = device_ms(lambda: scan_segments_plain(*args), n=3)
         rows = float(c.sum())
         live = c > 0
@@ -1252,19 +1282,22 @@ def phase_ivf_kernel(ix, q, dev) -> dict:
         gb, gb_u = rows * IVF_D * 4 / 1e9, uniq * IVF_D * 4 / 1e9
         # the unique probed rows and the queries in, the plan (3 i32 a
         # segment) and the scores (128 a segment) out; a dot product a
-        # query's probed row: no PyTorch call computes this segmented gather
-        # in one
+        # query's probed row, three TF32 products a term (3xTF32, as K1):
+        # no PyTorch call computes this segmented gather in one
         least = bound(4 * (uniq * IVF_D + n_b * IVF_D
                            + len(c) * (3 + SEG_BLK)),
-                      2 * rows * IVF_D, "fp32")
+                      3 * 2 * rows * IVF_D, "tf32")
         log(f"[ivf kernel] batch {n_b} x nprobe {nprobe}: {len(c)} segments "
             f"({ragged} ragged, {padding} padding), {gb:.4f} GB probed over "
             f"the queries, {gb_u:.4f} GB of unique rows; K6 device ms "
-            f"{spread(t)} ({gb_u / t[1]:.2f} TB/s of unique rows), in list "
-            f"order {t_list:.4f}; CUDA events {ev:.4f}, in list order "
-            f"{ev_list:.4f} (plain {plain_ms:.4f}, bound "
-            f"{least['bound_ms']:.4f} by {least['bound_by']})")
-        stats.update(ms=t[1], plain_ms=plain_ms, library_ms=None, **least)
+            f"{spread(t)} ({gb_u / t[1]:.2f} TB/s of unique rows, "
+            f"{least['bound_ms'] / t[1]:.0%} of the bound); CUDA events "
+            f"{ev:.4f} (plain {plain_ms:.4f}, bound {least['bound_ms']:.4f} "
+            f"by {least['bound_by']})")
+        if (n_b, nprobe) == (IVF_BATCH, 128):
+            stats.update(ms=t[1], plain_ms=plain_ms, library_ms=None,
+                         **least)
+        del args, starts, qids, counts
     return stats
 
 

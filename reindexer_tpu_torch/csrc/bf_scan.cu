@@ -132,13 +132,6 @@ __device__ __forceinline__ uint64_t make_desc_sw128(const float* tile) {
          (sbo << 32) | (1ull << 62);
 }
 
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero as cvt.rna.tf32.f32, in two integer operations: the split is the
-// kernel's bottleneck
-__device__ __forceinline__ float to_tf32(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
 // x truncated to TF32: what a wgmma reads of an fp32 operand
 __device__ __forceinline__ float truncate_tf32(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core and
-// TMA kernels: K1 `bf_scan` (bf_scan.cu), K3 `sq8_scan` (sq8_scan.cu)
-// and K4 `sq8_select` (sq8_select.cu).
+// TMA kernels: K1 `bf_scan` (bf_scan.cu), K3 `sq8_scan` (sq8_scan.cu), K4
+// `sq8_select` (sq8_select.cu), K5 `sq8_i8_scan` (sq8_i8_scan.cu) and K6
+// `ivf_seg_scan` (ivf_seg_scan.cu).
 //
 //   mbarriers     init / expect_tx / arrive / parity wait, in shared memory
 //   copies        a 2D TMA box (cp.async.bulk.tensor), completing on an
 //                 mbarrier
+//   TF32          rounding to nearest, for the 3xTF32 splits
 //   wgmma         fence / commit / wait, the accumulator register fence, and
 //                 the descriptor of a no-swizzle K-major tile in core
 //                 matrices (8 rows x 16 bytes; the two core matrices of a
@@ -97,6 +99,17 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(int* d) {   // s32 ones
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero as cvt.rna.tf32.f32, in two integer operations
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

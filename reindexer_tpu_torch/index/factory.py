@@ -17,19 +17,22 @@ from .base import Index
 from .scalar import (CompositeIndex, HashIndex, StoreIndex, TreeIndex,
                      TtlIndex, UuidIndex)
 
-_NOT_PORTED = {
-    IndexType.HNSW: "HNSW (and streaming KNN)",
-    IndexType.TEXT: "full-text",
+_NOT_PORTED = {    # index type -> (what, its ROADMAP item)
+    IndexType.HNSW: ("HNSW (and streaming KNN)", "A7"),
+    IndexType.TEXT: ("full-text", "A9"),
 }
 
 
 def create_index(idef: IndexDef, device: torch.device) -> Index:
-    if idef.index_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{_NOT_PORTED[idef.index_type]} indexes are not yet ported to "
-            "reindexer_tpu_torch, see ROADMAP")
+    # a composite index of any type is the host-only CompositeIndex, as in
+    # the reference's _create, whatever engine its type would otherwise need
     if idef.is_composite:
         return CompositeIndex(idef, ordered=idef.index_type == IndexType.TREE)
+    if idef.index_type in _NOT_PORTED:
+        what, item = _NOT_PORTED[idef.index_type]
+        raise NotImplementedError(
+            f"{what} indexes are not yet ported to reindexer_tpu_torch, see "
+            f"ROADMAP {item}")
     if idef.index_type == IndexType.HASH:
         if idef.field_type == FieldType.UUID:
             # dedicated 128-bit-key UUID index (uuid_index.cc)

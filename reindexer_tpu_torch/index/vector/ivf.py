@@ -63,21 +63,24 @@ _TRAIN_FACTOR = 39      # reference: ivf_index.h:62
 _KMEANS_ITERS = 20
 _MIN_TRAIN = 64
 
-# The CUDA router's cost model, fitted to both routes' stage 2 (host work
-# included) timed at 1M x 768 (capacity 1,048,576), batch {1, 16, 32, 64,
-# 128, 256} x nprobe {8..128} on an H100 80GB HBM3 at 700 W (PERF.md, "IVF
-# router"): segments cost 0.88 ms + 1.108 ns per probed row, the sweep
-# 3.24 ms + 0.1255 ms per query. Both pay the same fixed host work, so the
-# rest of the sweep is per row of capacity: 2.255 ns + 0.1197 ns per query
-# (its matmul and top-k grow with the batch). Rates are at 768 dims and
-# taken to scale with dims. The default penalty is the ratio of the rates
-# at the select's batch, so the sweep wins only at large batch x nprobe
-# (128 x 128 and 256 x 128 measured). RX_IVF_SEG_PENALTY replaces the
-# penalty for every batch; RX_IVF_SEG_FIXED_MS is the segment route's extra
-# fixed cost (0: measured equal).
-SEG_NS_PER_ROW = 1.108
-SWEEP_NS_PER_ROW = 2.255
-SWEEP_NS_PER_ROW_QUERY = 0.1197
+# The CUDA router's cost model, the least-squares fit of both routes' stage
+# 2 (host work included) timed at 1M x 768 (capacity 1,048,576), batch {1,
+# 16, 32, 64, 128, 256} x nprobe {8..128} on an H100 80GB HBM3 at 700 W
+# (PERF.md, "IVF router"; the 30 points are ROUTE_TABLE of
+# tests/test_torch_ivf.py): segments cost 2.849 ms + 0.5626 ns per probed
+# row, the sweep 6.959 ms + 0.1158 ms per query. Both pay the same fixed
+# host work, so the rest of the sweep is per row of capacity: 3.920 ns +
+# 0.1105 ns per query (its matmul and top-k grow with the batch). Rates are
+# at 768 dims and taken to scale with dims. The default penalty is the
+# ratio of the rates at the select's batch; since K6 reads a probed block
+# once for all its queries the segments win at every measured point, the
+# sweep only past them (more rows probed than 256 x 128 probes).
+# RX_IVF_SEG_PENALTY replaces the penalty for every batch;
+# RX_IVF_SEG_FIXED_MS is the segment route's extra fixed cost (0: folded
+# into the sweep's rate).
+SEG_NS_PER_ROW = 0.5626
+SWEEP_NS_PER_ROW = 3.920
+SWEEP_NS_PER_ROW_QUERY = 0.1105
 SEG_FIXED_MS = "0"
 
 segment_scans = Counter()    # stage 2 through K6 (or its plain version)

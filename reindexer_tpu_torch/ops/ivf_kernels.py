@@ -17,7 +17,9 @@ scores exactly the probed 128-row blocks of the reorder,
     out[i, r] = max(2 q.b_r - |b_r|^2 (L2) or q.b_r, -1e30)   r < counts[i]
     out[i, r] = -1e30                                         otherwise
 
-with b_r row r of block starts[i] and q row qids[i] of the queries.
+with b_r row r of block starts[i] and q row qids[i] of the queries. On the
+card K6 groups the segments by block itself (any order of the plan will
+do) and reads each probed block once for all the queries that probe it.
 `scan_segments` launches K6 for CUDA tensors and runs `scan_segments_plain`
 for CPU tensors; any other device raises. `seg_scan_launches` counts the
 kernel's launches only. Scores are "higher is better"; the rank-invariant
@@ -268,18 +270,23 @@ def scan_segments(starts: torch.Tensor, qids: torch.Tensor,
         return scan_segments_plain(starts, qids, counts, queries, reordered,
                                    metric)
     nseg = starts.shape[0]
+    n_blocks, n_q = reordered.shape[0] // SEG_BLK, queries.shape[0]
     out = torch.empty((nseg, SEG_BLK), dtype=torch.float32,
                       device=reordered.device)
     starts, qids, counts = (starts.contiguous(), qids.contiguous(),
                             counts.contiguous())
     queries, reordered = queries.contiguous(), reordered.contiguous()
     lib = _build.load("ivf_seg_scan")
+    # the grouping's work space (segments by block, work items); its
+    # layout is the kernel source's
+    scratch = torch.empty(lib.ivf_seg_scan_scratch_ints(nseg, n_blocks, n_q),
+                          dtype=torch.int32, device=reordered.device)
     with torch.cuda.device(reordered.device):
         code = lib.ivf_seg_scan_launch(
             starts.data_ptr(), qids.data_ptr(), counts.data_ptr(),
-            queries.data_ptr(), reordered.data_ptr(), out.data_ptr(), nseg,
-            reordered.shape[0] // SEG_BLK, queries.shape[0],
-            reordered.shape[1], int(metric == VectorMetric.L2),
+            queries.data_ptr(), reordered.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), nseg, n_blocks, n_q, reordered.shape[1],
+            int(metric == VectorMetric.L2),
             torch.cuda.current_stream(reordered.device).cuda_stream)
     _build.check_launch(lib, "ivf_seg_scan", code)
     seg_scan_launches.add()

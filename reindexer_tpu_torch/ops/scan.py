@@ -41,6 +41,7 @@ SQ_EFF_BIG = 1e30     # sq_eff of an invalid row
 SENT = -1e30          # the SQ8 scans clamp scores here
 SENT_HALF = -5e29     # scores at or below are invalid
 BLK = 64              # rows per block max
+SQ8_I8_MAX_D = 132000  # K5's |sum| <= D * 127 * 128 stays below 2^31
 
 launches = _build.Counter()               # K1 bf_scan
 sq8_scan_launches = _build.Counter()      # K3 sq8_scan
@@ -203,13 +204,13 @@ def sq8_i8_scan(qa_i8: torch.Tensor, sqscale: torch.Tensor,
            sqscale=sqscale)
     if not _cuda_or_cpu("sq8_i8_scan", codes.device):
         return sq8_i8_scan_plain(qa_i8, sqscale, codes, sq_eff)
-    # the kernel reads whole 4-byte words of a row when D % 4 == 0
+    n_q, d = qa_i8.shape
+    if d >= SQ8_I8_MAX_D:
+        raise ValueError(f"sq8_i8_scan: D = {d}; its int32 sums are exact "
+                         f"only for D < {SQ8_I8_MAX_D}")
     qa_i8, codes = qa_i8.contiguous(), codes.contiguous()
-    if qa_i8.data_ptr() % 4:
-        qa_i8 = qa_i8.clone()
     sqscale, sq_eff = sqscale.contiguous(), sq_eff.contiguous()
     lib = _build.load("sq8_i8_scan")
-    n_q, d = qa_i8.shape
     n = codes.shape[0]
     s = torch.empty((n_q, n), dtype=torch.float32, device=codes.device)
     bmax = torch.empty((n_q, n // BLK), dtype=torch.float32,

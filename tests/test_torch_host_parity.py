@@ -216,6 +216,71 @@ def test_seams_raise_as_the_reference_does():
     assert highlighted[0] == highlighted[1]
 
 
+def _composite_text_db(pkg):
+    """`docs` with a composite index of type `text` over (a, b): the
+    reference builds its host CompositeIndex for any composite definition,
+    whatever its type, and so must the port."""
+    db = (port.Reindexer(device="cpu") if pkg is port else ref.Reindexer())
+    db.open_namespace("docs", [
+        pkg.IndexDef("id", "hash", "int", opts=pkg.IndexOpts(is_pk=True)),
+        pkg.IndexDef("a", "-", "int"),
+        pkg.IndexDef("b", "-", "string"),
+        pkg.IndexDef("ab", "text", "composite", json_paths=("a", "b"))])
+    for i in range(60):
+        db.upsert("docs", {"id": i, "a": i % 5, "b": "xyz"[i % 3]})
+    db.delete("docs", {"id": 16})
+    db.upsert("docs", {"id": 21, "a": 3, "b": "x"})
+    return db
+
+
+COMPOSITE_TEXT_QUERIES = {
+    "eq": lambda m: m.Query("docs").where(
+        "ab", "=", [(1, "y"), (3, "x")]).sort("id"),
+    "substitution": lambda m: m.Query("docs").where("a", "=", 2).where(
+        "b", "=", "z").sort("id"),
+    "not_total": lambda m: m.Query("docs").op_not().where(
+        "ab", "=", [(0, "x")]).req_total_count().limit(7),
+}
+
+
+@pytest.mark.parametrize("query", sorted(COMPOSITE_TEXT_QUERIES))
+def test_composite_text_index_matches_reference(query):
+    """A composite `text` definition opens, upserts, deletes and selects in
+    the port exactly as in the reference."""
+    build = COMPOSITE_TEXT_QUERIES[query]
+    got = [summary(_composite_text_db(pkg).select(build(pkg)))
+           for pkg in (ref, port)]
+    assert got[0] == got[1]
+    assert got[0][0], "the query matched nothing"
+
+
+def test_composite_hnsw_definition_and_plain_unported_types():
+    """An `hnsw` definition is a float-vector index whatever field type it
+    names (IndexDef makes it so in both packages): without dims both raise
+    the same ParamsError; with dims the reference builds its HNSW engine and
+    the port raises NotImplementedError naming ROADMAP A7, as for a plain
+    hnsw index. A plain `text` index raises naming A9."""
+    errors = []
+    for pkg in (ref, port):
+        with pytest.raises(pkg.ParamsError) as info:
+            pkg.IndexDef("ab", "hnsw", "composite", json_paths=("a", "b"))
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+    opts = {"vector_opts": port.FloatVectorOpts(dims=4)}
+    composite = port.IndexDef("ab", "hnsw", "composite", json_paths=("a", "b"),
+                              **opts)
+    assert not composite.is_composite
+    ref_def = ref.IndexDef("ab", "hnsw", "composite", json_paths=("a", "b"),
+                           vector_opts=ref.FloatVectorOpts(dims=4))
+    assert not ref_def.is_composite
+    pk = port.IndexDef("id", "hash", "int", opts=port.IndexOpts(is_pk=True))
+    for idef, item in ((composite, "A7"),
+                       (port.IndexDef("v", "hnsw", **opts), "A7"),
+                       (port.IndexDef("t", "text", "string"), "A9")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            port.Reindexer(device="cpu").open_namespace("n", [pk, idef])
+
+
 def test_native_lanes_are_named_by_what_they_are_built_from(tmp_path):
     """The host C++ lanes build into the ignored build directory under a
     name that hashes their source (and the flags and the machine type), so

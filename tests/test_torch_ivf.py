@@ -474,19 +474,71 @@ def test_router_inequality(monkeypatch):
     assert not port_ivf.segments_win(1000, 4000 + int(rows_per_ms), 16, 8)
 
 
-# (batch, seg_rows, segments faster) of the H100 route table at 1M x 768,
-# capacity 1,048,576 (PERF.md, "IVF router"); 128 x 128 is the one point
-# the fit calls wrong (segments 19.9 ms, sweep 17.9 ms), so it is left out
-@pytest.mark.parametrize("batch, seg_rows, seg_faster", [
-    (1, 112_768, True), (16, 2_046_208, True), (32, 4_068_608, True),
-    (64, 8_112_896, True), (128, 8_044_672, True), (256, 16_150_400, True),
-    (256, 32_630_144, False)])
-def test_router_defaults_follow_the_h100_table(monkeypatch, batch, seg_rows,
-                                               seg_faster):
+# The H100 route table at 1M x 768, capacity 1,048,576 (PERF.md, "IVF
+# router"; chip_smoke.py's `[ivf routes]` lines on an NVIDIA H100 80GB HBM3
+# at 700 W): (batch, nprobe, seg_rows, stage-2 ms of the segment route, of
+# the masked sweep). Since K6 reads a probed block once for all its queries
+# the segments are faster at every point.
+ROUTE_TABLE = [
+    (1, 8, 7168, 0.8572, 7.3255), (1, 16, 13440, 1.2749, 6.4691),
+    (1, 32, 28160, 1.2960, 6.2795), (1, 64, 55808, 1.4473, 6.3586),
+    (1, 128, 112768, 1.5222, 7.9706), (16, 8, 117632, 2.1982, 9.2239),
+    (16, 16, 237312, 2.0322, 9.6523), (16, 32, 489856, 2.3708, 8.3902),
+    (16, 64, 1004672, 2.8776, 9.3326), (16, 128, 2046208, 3.3869, 9.6565),
+    (32, 8, 240512, 2.1785, 11.6060), (32, 16, 478592, 3.0614, 13.0403),
+    (32, 32, 981760, 3.1900, 11.3574), (32, 64, 1984000, 3.6840, 11.0508),
+    (32, 128, 4068608, 4.5408, 8.9675), (64, 8, 491136, 4.0350, 14.7048),
+    (64, 16, 982016, 3.8783, 15.3720), (64, 32, 1985792, 5.1793, 14.7252),
+    (64, 64, 3987840, 5.3987, 14.1325), (64, 128, 8112896, 6.3496, 12.4139),
+    (128, 8, 998400, 5.2805, 20.3033), (128, 16, 1992320, 5.5555, 21.3486),
+    (128, 32, 4008448, 5.3867, 19.1556), (128, 64, 8044672, 6.9064, 19.6410),
+    (128, 128, 16309888, 12.1714, 22.3661),
+    (256, 8, 2007168, 7.2479, 36.7883), (256, 16, 3996288, 7.6797, 38.3218),
+    (256, 32, 8012672, 9.7100, 36.5824),
+    (256, 64, 16150400, 13.8451, 37.1655),
+    (256, 128, 32630144, 19.3378, 36.9254),
+]
+ROUTE_CAPACITY = 1_048_576
+
+
+def _no_router_overrides(monkeypatch):
     for name in ("RX_IVF_SEG_PENALTY", "RX_IVF_SEG_FIXED_MS"):
         monkeypatch.delenv(name, raising=False)
-    assert port_ivf.segments_win(seg_rows, 1_048_576, 768,
+
+
+# (batch, seg_rows, segments faster), points of ROUTE_TABLE
+@pytest.mark.parametrize("batch, seg_rows, seg_faster", [
+    (1, 112_768, True), (16, 2_046_208, True), (32, 4_068_608, True),
+    (64, 8_112_896, True), (128, 16_309_888, True), (256, 2_007_168, True),
+    (256, 32_630_144, True)])
+def test_router_defaults_follow_the_h100_table(monkeypatch, batch, seg_rows,
+                                               seg_faster):
+    _no_router_overrides(monkeypatch)
+    assert port_ivf.segments_win(seg_rows, ROUTE_CAPACITY, 768,
                                  batch) == seg_faster
+
+
+def test_router_constants_are_the_fit_of_the_h100_table(monkeypatch):
+    """The router's constants are the least-squares fit of ROUTE_TABLE
+    (segments: fixed + ns a probed row; sweep: fixed + ms a query, its rate
+    a row of capacity after the segments' fixed cost), and the router takes
+    the faster route at 29 of the 30 points at least."""
+    _no_router_overrides(monkeypatch)
+    b, _, rows, seg_ms, sweep_ms = (np.array(c, dtype=np.float64)
+                                    for c in zip(*ROUTE_TABLE))
+    ones = np.ones_like(b)
+    seg_fixed, seg_per_row = np.linalg.lstsq(np.c_[ones, rows], seg_ms,
+                                             rcond=None)[0]
+    sweep_fixed, sweep_per_q = np.linalg.lstsq(np.c_[ones, b], sweep_ms,
+                                               rcond=None)[0]
+    np.testing.assert_allclose(
+        [port_ivf.SEG_NS_PER_ROW, port_ivf.SWEEP_NS_PER_ROW,
+         port_ivf.SWEEP_NS_PER_ROW_QUERY],
+        [seg_per_row * 1e6, (sweep_fixed - seg_fixed) * 1e6 / ROUTE_CAPACITY,
+         sweep_per_q * 1e6 / ROUTE_CAPACITY], rtol=1e-3)
+    right = sum(port_ivf.segments_win(int(r), ROUTE_CAPACITY, 768, int(n))
+                == (s < w) for n, _, r, s, w in ROUTE_TABLE)
+    assert right >= 29
 
 
 # --- 3. trained from scratch, through the public API ---------------------
@@ -670,33 +722,100 @@ def _need_cuda():
                     "card")
 
 
+def _k6_plan(plan, rng, n_blocks=8):
+    """(starts, qids, counts, n_q, bad) of a K6 test plan; bad lists the
+    segments whose index is out of range (their rows must come out NaN).
+
+    random        query-major, ragged counts, padding (_segments)
+    shared        256 queries all probing every block (tiles of a block),
+                  each segment its own count
+    padding       half the segments count-0 padding on the pad block
+    counts        16 queries on one block, counts 0 .. 128
+    out_of_range  random, with a block index and a query index out of range
+    one_query     one query (no grouping), a block probed twice, padding
+    misaligned    random, over a reorder whose base is off 16 bytes"""
+    if plan in ("random", "out_of_range", "misaligned"):
+        starts, qids, counts = _segments(rng)
+        n_q, bad = 3, []
+        if plan == "out_of_range":
+            starts[1], qids[4], counts[1], counts[4] = n_blocks, 3, 5, 7
+            bad = [1, 4]
+        return starts, qids, counts, n_q, bad
+    if plan == "shared":
+        n_q, s_q = 256, n_blocks
+        starts = np.tile(rng.permutation(n_blocks), n_q)
+        qids = np.repeat(np.arange(n_q), s_q)
+        counts = rng.integers(1, 129, size=n_q * s_q)
+    elif plan == "padding":
+        n_q, s_q = 8, 16
+        starts = rng.integers(0, n_blocks - 1, size=n_q * s_q)
+        qids = np.repeat(np.arange(n_q), s_q)
+        counts = rng.integers(1, 129, size=n_q * s_q)
+        pad = (np.arange(n_q * s_q) % s_q) >= s_q // 2
+        starts[pad], counts[pad] = n_blocks - 1, 0
+    elif plan == "counts":
+        n_q = 16
+        starts = np.full(n_q, 3)
+        qids = rng.permutation(n_q)
+        counts = np.linspace(0, 128, n_q).astype(np.int64)
+    else:                                           # one_query
+        n_q = 1
+        starts = np.array([2, 5, 2, 0, n_blocks - 1, n_blocks - 1])
+        qids = np.zeros(6)
+        counts = np.array([128, 77, 3, 128, 0, 0])
+    return (starts.astype(np.int32), qids.astype(np.int32),
+            counts.astype(np.int32), n_q, [])
+
+
+K6_PLANS = ["random", "shared", "padding", "counts", "out_of_range",
+            "one_query", "misaligned"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", K6_PLANS)
 @pytest.mark.parametrize("dims", [8, 13, 768])
-def test_cuda_seg_scan_matches_plain(dims):
+def test_cuda_seg_scan_matches_plain(dims, plan):
     """K6 within 8 fp32 ulps of the magnitude each score is summed from
-    (sum |q_d b_d|, plus |b|^2 for L2): both sum in fp32, in another order;
-    a bf16 or TF32 operand would be off by ~1e3 ulps."""
+    (sum |q_d b_d|, plus |b|^2 for L2): its 3xTF32 products and the plain
+    version's fp32 ones round in another order; a single bf16 or TF32
+    operand would be off by ~1e3 ulps. Segments with an index out of range
+    come out NaN and are compared with nothing."""
     _need_cuda()
     rng = np.random.default_rng(21)
-    q, reordered, _, _, _ = _reorder(rng, dims=dims)
-    starts, qids, counts = _segments(rng)
+    starts, qids, counts, n_q, bad = _k6_plan(plan, rng)
+    q = rng.normal(size=(n_q, dims)).astype(np.float32)
+    _, reordered, _, _, _ = _reorder(rng, dims=dims)
     dev = torch.device("cuda")
+    base = t(reordered).to(dev)
+    if plan == "misaligned":
+        flat = torch.empty(base.numel() + 1, device=dev)
+        flat[1:] = base.reshape(-1)
+        base = flat[1:].view(base.shape)
+        assert base.data_ptr() % 16
+    # the plain version indexes with every start: give it valid ones
+    ok_starts, ok_qids = starts.copy(), qids.copy()
+    ok_starts[bad], ok_qids[bad] = 0, 0
     eps = float(np.finfo(np.float32).eps)
     for metric in METRICS:
-        args = [t(x).to(dev) for x in (starts, qids, counts, q[:3],
-                                       reordered)] + [metric]
+        args = [t(x).to(dev) for x in (starts, qids, counts, q)] + [base,
+                                                                     metric]
+        plain = [t(x).to(dev) for x in (ok_starts, ok_qids)] + args[2:]
         pk.seg_scan_launches.reset()
         got = pk.scan_segments(*args)
-        want = pk.scan_segments_plain(*args)
+        want = pk.scan_segments_plain(*plain)
         torch.cuda.synchronize()
         assert pk.seg_scan_launches.value == 1
-        mag = pk.scan_segments_plain(*args[:3], args[3].abs(), args[4].abs(),
+        mag = pk.scan_segments_plain(*plain[:3], plain[3].abs(),
+                                     plain[4].abs(),
                                      VectorMetric.INNER_PRODUCT)
         if metric == VectorMetric.L2:
             mag = 2.0 * mag - pk.scan_segments_plain(
-                *args[:3], torch.zeros_like(args[3]), args[4], metric)
+                *plain[:3], torch.zeros_like(plain[3]), plain[4], metric)
+        keep = torch.ones(len(starts), dtype=torch.bool, device=dev)
+        keep[bad] = False
+        assert bool(torch.isnan(got[~keep]).all())
         assert bool(((got - want).abs()
-                     <= 8 * eps * mag.clamp_min(0.0)).all())
+                     <= 8 * eps * mag.clamp_min(0.0))[keep].all())
 
 
 @pytest.mark.cuda

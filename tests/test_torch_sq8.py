@@ -938,6 +938,70 @@ def test_cuda_sq8_scan_one_limb_fails_the_ulps_check(cuda_device):
     assert _k3_ulps(s, qa, codes, sq, shift, 2.0) > 64.0
 
 
+# K5 on the card: every path of the kernel. Q = 1, 5 (N of a wgmma 8), 64,
+# 130 (three query groups); D = 128 and 768 through tensor maps, 13 and 100
+# through the producer's device-memory loads; N = 64 x 37 rows, a multiple
+# of 64 and not of 128. Codes 0 and 255 and query bytes +-127 are in every
+# case.
+K5_DS = [13, 100, 128, 768]
+
+
+def _k5_case(seed, n_q, d, n=64 * 37):
+    rng = np.random.default_rng(seed)
+    qa = rng.integers(-127, 128, size=(n_q, d)).astype(np.int8)
+    qa[0, : d // 2] = 127
+    qa[-1, d // 2:] = -127
+    codes = rng.integers(0, 256, size=(n, d), dtype=np.uint8)
+    codes[:70] = 0
+    codes[70:140] = 255
+    sqscale = (1e-4 * (1.0 + rng.random(n_q))).astype(np.float32)
+    sq = (100.0 * rng.random(n)).astype(np.float32)
+    sq[rng.choice(n, size=20, replace=False)] = SQ_EFF_BIG   # invalid rows
+    return qa, sqscale, codes, sq
+
+
+def _assert_k5_bit_equal(qa, sqscale, codes, sq):
+    s, bm = sq8_i8_scan(qa, sqscale, codes, sq)
+    s_p, bm_p = sq8_i8_scan_plain(qa, sqscale, codes, sq)
+    assert torch.equal(s, s_p)
+    assert torch.equal(bm, bm_p)
+    assert torch.equal(bm, s.view(qa.shape[0], -1, BLK).amax(dim=2))
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", K5_DS)
+@pytest.mark.parametrize("n_q", [1, 5, 64, 130])
+def test_cuda_sq8_i8_scan_bit_equal(cuda_device, n_q, d):
+    """K5's S and bmax bit for bit equal to its plain version's, and its
+    bmax the block max of its S."""
+    s = _assert_k5_bit_equal(*_t(*_k5_case(32, n_q, d), device=cuda_device))
+    assert s.shape == (n_q, 64 * 37)
+
+
+@pytest.mark.cuda
+def test_cuda_sq8_i8_scan_wide_sums_stay_exact(cuda_device):
+    """At D = 70,000 the extreme rows' sums, 127 * 127 * D and -127 * -128
+    * D, fit int32 only because K5 sums signed codes: u8 codes times the
+    queries (127 * 255 * D) would pass 2^31. Scores are read with unit
+    scale and no sq_eff, so S holds float(sum) itself."""
+    d, n = 70_000, 192
+    rng = np.random.default_rng(33)
+    qa = rng.integers(-127, 128, size=(2, d)).astype(np.int8)
+    qa[0] = 127
+    qa[1] = -127
+    codes = rng.integers(0, 256, size=(n, d), dtype=np.uint8)
+    codes[0] = 255
+    codes[1] = 0
+    args = _t(qa, np.ones(2, np.float32), codes, np.zeros(n, np.float32),
+              device=cuda_device)
+    s = _assert_k5_bit_equal(*args)
+    want = np.float32([[127 * 127 * d, -127 * 128 * d],
+                       [-127 * 127 * d, 127 * 128 * d]])
+    np.testing.assert_array_equal(s[:, :2].cpu().numpy(), want)
+    assert 127 * 255 * d >= 2 ** 31
+
+
 def _k4_check(o, p, exact, k):
     """K4 (o) against its plain version (p): the same flags; a flagged
     query's result is -inf / -1; an unflagged one has the plain version's
