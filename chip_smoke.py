@@ -1,6 +1,7 @@
 """Smoke run of reindexer_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --hnsw-build N   # phase 10 alone, at N rows
 
 Phases, in order; any failure raises, so the exit code is not 0:
   0. identity: the card's name and power limit (nvidia-smi), torch, CUDA;
@@ -73,6 +74,31 @@ Phases, in order; any failure raises, so the exit code is not 0:
      probed-set oracle (the list assignment checked as in 6). K6 must have
      launched on the IVF paths; then host ms, device ms and idle share of
      knn_batch(16) and select;
+ 10. HNSW set-up, BASELINE config #2 cut in N (bench.py hnsw200k): 200,000
+     x 96 inner product, M 16, efC 200, the Deep1M-like rows bench_deep1m
+     makes (seed 11, 4,096 centres, sigma 0.35, normalized), loaded as it
+     loads them (keeper.bulk_load, _grow, _pending, commit); the build's
+     time (split into the host's enqueueing of the device work, its wait
+     for the device and its linking), rows/s, levels, layer-0 degree and
+     device memory;
+ 11. the card's graph loaded into a CPU index (the plain path): 16 queries
+     at ef 64 give the same ids (near-ties aside), ranks within rtol 1e-4
+     and the same beam steps on both;
+ 12. the HNSW main path: 64 queries, k=10, ef 32 to 512, select_batch and
+     64 selects against a float64 oracle (ranks exact within rtol 1e-4,
+     recall@10 >= 0.95 at ef 128, falling by no more than 0.005 as ef
+     grows); per ef the host ms, device ms, idle share, beam steps, host
+     syncs and device launches per search (the beam loop is plain
+     PyTorch, so these say whether it is launch-bound);
+ 13. SQ8 HNSW on the same graph: the store active, recall@10 >= 0.9 at ef
+     128, ranks exact after the fp32 rescore;
+ 14. the HNSW public API at bench_hnsw's size (20,000 x 96 IP, efC 128,
+     db.upsert, 1,000 deletes): 64 selects, knn_batch(64) and an SQL KNN
+     against the oracle with no deleted row, a streaming query (KNN with
+     neither k nor radius, filtered by grp) and its offset page, an array
+     field of 3 vectors a document (each document once, ranked by its best
+     vector); then host ms, device ms and idle share of knn_batch(64) and
+     select;
 then one JSON line for the kernels (with each one's bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100's peak for their
 type) and, last, the result line.
@@ -157,9 +183,11 @@ PROFILER_MARGIN_S = 0.1
 TRACE_LOSSES = [0, 0]
 
 
-def profile_device(fn, n: int, host: bool = False) -> tuple[dict, float]:
+def profile_device(fn, n: int, host: bool = False,
+                   launches: dict | None = None) -> tuple[dict, float]:
     """torch.profiler over n calls of fn: ({device item: ms per call},
-    wall ms of the n calls). host=True also traces the host's operators.
+    wall ms of the n calls). host=True also traces the host's operators;
+    `launches`, when given, receives {device item: events per call}.
     A trace without any device event is taken again, up to PROFILER_TRIES
     times; the dict is empty if every one came back so. Every call launches
     the same kernels, so an item's count of events should be a multiple of
@@ -190,6 +218,8 @@ def profile_device(fn, n: int, host: bool = False) -> tuple[dict, float]:
                 lost |= ev.count != per_call * n
                 per[ev.key] = (per.get(ev.key, 0.0)
                                + dt / 1e3 / ev.count * per_call)
+                if launches is not None:
+                    launches[ev.key] = launches.get(ev.key, 0) + per_call
         if per:
             TRACE_LOSSES[0] += lost
             TRACE_LOSSES[1] += 1
@@ -1568,12 +1598,430 @@ def phase_ivf_api(card: str, dev) -> int:
     return counts["ivf_seg_scan"]
 
 
+# --- HNSW (BASELINE config #2, cut in N) -----------------------------------
+
+HNSW_N, HNSW_D, HNSW_M, HNSW_EFC = 200_000, 96, 16, 200  # bench.py hnsw200k
+HNSW_CENTERS, HNSW_SIGMA, HNSW_SEED = 4096, 0.35, 11     # bench_deep1m data
+HNSW_Q, HNSW_K = 64, 10
+HNSW_EFS = (32, 64, 128, 256, 512)
+HNSW_MIN_RECALL, HNSW_RECALL_EF = 0.95, 128   # recall@10 floor at ef 128
+HNSW_RECALL_DROP = 0.005   # recall@10 may fall this much as ef grows, no more
+HNSW_SQ8_MIN_RECALL = 0.9
+HNSW_CPU_Q, HNSW_CPU_EF = 16, 64              # the CPU / card agreement
+HNSW_API_N, HNSW_API_D, HNSW_API_EFC = 20_000, 96, 128   # bench_hnsw
+HNSW_API_EF = 64
+HNSW_API_MIN_RECALL = 0.9
+HNSW_ARRAY_DOCS, HNSW_ARRAY_VECS = 2_000, 3
+
+
+def hnsw_counters() -> dict:
+    from reindexer_tpu_torch.ops import hnsw_kernels
+    return {"beam_steps": hnsw_kernels.beam_steps,
+            "host_syncs": hnsw_kernels.host_syncs}
+
+
+def hnsw_def(name: str, dims: int, efc: int, quant: bool = False,
+             is_array: bool = False):
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     QuantizationConfig, VectorMetric)
+    return IndexDef(name, "hnsw", opts=IndexOpts(is_array=is_array),
+                    vector_opts=FloatVectorOpts(
+                        dims=dims, metric=VectorMetric.INNER_PRODUCT,
+                        m=HNSW_M, ef_construction=efc,
+                        quantization=QuantizationConfig(enabled=quant)))
+
+
+def make_deep1m_like(n: int, d: int, n_q: int):
+    """bench.py's Deep1M-like set (bench_deep1m): 4,096 gaussian centres,
+    rows at sigma 0.35 around them, normalized; the queries drawn the same
+    way after the rows; seed 11."""
+    rng = np.random.default_rng(HNSW_SEED)
+    centers = rng.normal(size=(HNSW_CENTERS, d)).astype(np.float32)
+    assign = rng.integers(0, HNSW_CENTERS, size=n)
+    base = (centers[assign]
+            + HNSW_SIGMA * rng.normal(size=(n, d))).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    queries = (centers[rng.integers(0, HNSW_CENTERS, size=n_q)]
+               + HNSW_SIGMA * rng.normal(size=(n_q, d))).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    return base, queries
+
+
+def phase_hnsw_setup(dev):
+    """BASELINE config #2 at N = 200,000, loaded as bench_deep1m loads it
+    (keeper.bulk_load, _grow, _pending, commit). Returns (index, base,
+    queries)."""
+    from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
+    t0 = time.perf_counter()
+    base, queries = make_deep1m_like(HNSW_N, HNSW_D, HNSW_Q)
+    t1 = time.perf_counter()
+    ix = HnswIndex(hnsw_def("vec", HNSW_D, HNSW_EFC), dev)
+    # host seconds in the build's two phases and in the linking itself:
+    # _link_chunk's time less _connect_selected's is its wait on the device
+    parts = dict.fromkeys(("_dispatch_chunks", "_link_chunk",
+                           "_connect_selected"), 0.0)
+    for name in parts:
+        def timed(*args, _fn=getattr(ix, name), _name=name):
+            t = time.perf_counter()
+            out = _fn(*args)
+            parts[_name] += time.perf_counter() - t
+            return out
+        setattr(ix, name, timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    ix.keeper.bulk_load(base)
+    ix._grow(HNSW_N)
+    ix._pending = dict(enumerate(base))
+    ix.commit()
+    ix._sync_device()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t2
+    for name in parts:
+        delattr(ix, name)
+    deg = (ix._links0[:HNSW_N] >= 0).sum(axis=1)
+    if deg.min() < 1:
+        raise AssertionError(f"{int((deg < 1).sum())} rows have no layer-0 "
+                             "link")
+    layers = [int((u[:HNSW_N] >= 0).any(axis=1).sum()) for u in ix._upper]
+    vec_mb = (ix.keeper.data.nbytes + ix.keeper.sq.nbytes) / 2 ** 20
+    link_mb = (ix._d_links0.nbytes + (ix._d_upper.nbytes if ix._d_upper
+                                      is not None else 0)) / 2 ** 20
+    cut = ", bench.py hnsw200k: N cut from 1M" if HNSW_N < 1_000_000 else ""
+    log(f"[hnsw setup] {HNSW_N} x {HNSW_D} IP, M {HNSW_M}, efC {HNSW_EFC} "
+        f"(BASELINE config #2{cut}): data {t1 - t0:.1f} s (host); build {secs:.2f} s, {HNSW_N / secs:.0f} "
+        f"rows/s (host: dispatch {parts['_dispatch_chunks']:.2f} s, wait "
+        f"{parts['_link_chunk'] - parts['_connect_selected']:.2f} s, link "
+        f"{parts['_connect_selected']:.2f} s); max level {ix._max_level}, "
+        f"linked nodes per upper layer "
+        f"(top first) {layers}; layer-0 degree mean {deg.mean():.2f} (min "
+        f"{deg.min()}, max {deg.max()} of {ix.m0}); device memory: vectors "
+        f"{vec_mb:.1f} MiB, link mirrors {link_mb:.1f} MiB, build peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return ix, base, queries
+
+
+def agree(ref_res, got_res, tag: str) -> None:
+    """(ids, ranks) lists: ranks within rtol 1e-4, ids equal except between
+    near-ties at the k-th rank."""
+    for qi, ((ids_r, ranks_r), (ids, ranks)) in enumerate(zip(ref_res,
+                                                              got_res)):
+        if len(ids) != len(ids_r) or not np.allclose(
+                ranks, ranks_r, rtol=RANK_RTOL, atol=1e-6):
+            raise AssertionError(f"{tag}: query {qi} ranks differ")
+        rank_of = dict(zip(ids_r, ranks_r)) | dict(zip(ids, ranks))
+        if tie_violations(ids, ids_r, lambda i: rank_of[i],
+                          float(ranks_r[-1]), TIE_RTOL):
+            raise AssertionError(f"{tag}: query {qi} ids differ beyond "
+                                 "near-ties")
+
+
+def phase_hnsw_cpu_agree(ix, queries) -> None:
+    """The card's graph loaded into a CPU index (the plain path): the same
+    ids up to near-ties, ranks within rtol 1e-4, the same beam steps."""
+    from reindexer_tpu_torch import HnswSearchParams
+    from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
+    cpu = HnswIndex(hnsw_def("vec", HNSW_D, HNSW_EFC), torch.device("cpu"))
+    cpu.load_state_dict(ix.state_dict())
+    p = HnswSearchParams(k=HNSW_K, ef=HNSW_CPU_EF)
+    steps = hnsw_counters()["beam_steps"]
+    out, n_steps, secs = [], [], []
+    for index in (cpu, ix):
+        steps.reset()
+        t0 = time.perf_counter()
+        out.append([ids_ranks(r) for r in index.select_batch(
+            queries[:HNSW_CPU_Q], p)])
+        secs.append(time.perf_counter() - t0)
+        n_steps.append(steps.value)
+    agree(out[0], out[1], "hnsw cpu/card")
+    if n_steps[0] != n_steps[1]:
+        raise AssertionError(f"beam steps differ: CPU {n_steps[0]}, card "
+                             f"{n_steps[1]}")
+    log(f"[hnsw cpu/card] {HNSW_CPU_Q} queries at ef {HNSW_CPU_EF}: the "
+        f"card's graph searched on the CPU and on the card gives the same ids "
+        f"(near-ties aside), ranks within rtol 1e-4, {n_steps[1]} beam steps "
+        f"on both (CPU {secs[0]:.2f} s, card {secs[1]:.3f} s, host clock)")
+
+
+def hnsw_oracle(base, queries, dev, alive=None):
+    """float64 inner products f64[Q, N] on dev (-inf on deleted rows) and
+    the top-HNSW_K ids per query."""
+    s = torch.from_numpy(queries).to(dev).double() @ torch.from_numpy(
+        base).to(dev).double().T
+    if alive is not None:
+        s[:, torch.from_numpy(~alive).to(dev)] = float("-inf")
+    return s, torch.topk(s, HNSW_K, dim=1).indices.cpu().numpy()
+
+
+def check_hnsw(results, s64, top, tag: str) -> float:
+    """(ids, ranks) per query: ranks are the exact inner products (rtol
+    1e-4), no deleted row, HNSW_K ids. Returns recall@K against top."""
+    hits = 0
+    for qi, (ids, ranks) in enumerate(results):
+        if len(ids) != HNSW_K or len(set(ids)) != HNSW_K:
+            raise AssertionError(f"{tag}: query {qi} got {len(ids)} ids")
+        exact = s64[qi, torch.as_tensor(ids, device=s64.device)].cpu()
+        exact = exact.numpy()
+        if not np.isfinite(exact).all():
+            raise AssertionError(f"{tag}: query {qi} returned a deleted row")
+        if not np.allclose(ranks, exact, rtol=RANK_RTOL, atol=1e-6):
+            raise AssertionError(f"{tag}: query {qi} ranks off by "
+                                 f"{np.abs(ranks - exact).max()}")
+        if list(ranks) != sorted(ranks, reverse=True):
+            raise AssertionError(f"{tag}: query {qi} ranks out of order")
+        hits += len(set(ids) & set(top[qi].tolist()))
+    return hits / (HNSW_K * len(results))
+
+
+def profile_launches(fn, n: int = 3) -> tuple[float, float, int]:
+    """torch.profiler over n calls of fn (after one warm call): (device ms
+    per call, idle share of the wall time, device events per call)."""
+    fn()
+    counts: dict = {}
+    per, wall_ms = profile_device(fn, n, host=True, launches=counts)
+    if not per:
+        return float("nan"), float("nan"), 0
+    busy = sum(per.values())
+    return busy, 1.0 - busy * n / wall_ms, sum(counts.values())
+
+
+def phase_hnsw_main(card: str, ix, base, queries) -> None:
+    """The HNSW main path: select_batch(64) and 64 selects at every ef,
+    against the float64 oracle; per ef the host and device ms, idle share,
+    beam steps, host syncs and device launches per search."""
+    from reindexer_tpu_torch import HnswSearchParams
+    counters = hnsw_counters()
+    s64, top = hnsw_oracle(base, queries, ix.keeper.device)
+    prev = {}
+    for ef in HNSW_EFS:
+        p = HnswSearchParams(k=HNSW_K, ef=ef)
+        row = {}
+        for entry in ("select_batch", "select"):
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            if entry == "select_batch":
+                res = [ids_ranks(r) for r in ix.select_batch(queries, p)]
+                searches = 1
+            else:
+                res = [ids_ranks(ix.select(v, p)) for v in queries]
+                searches = len(queries)
+            host_ms = 1e3 * (time.perf_counter() - t0) / searches
+            recall = check_hnsw(res, s64, top, f"hnsw {entry} ef={ef}")
+            if recall < prev.get(entry, 0.0) - HNSW_RECALL_DROP:
+                raise AssertionError(f"hnsw {entry}: recall@{HNSW_K} fell "
+                                     f"from {prev[entry]:.4f} to {recall:.4f}"
+                                     f" at ef={ef}")
+            if ef == HNSW_RECALL_EF and recall < HNSW_MIN_RECALL:
+                raise AssertionError(f"hnsw {entry}: recall@{HNSW_K} "
+                                     f"{recall:.4f} < {HNSW_MIN_RECALL} at "
+                                     f"ef={ef}")
+            prev[entry] = recall
+            steps = counters["beam_steps"].value / searches
+            syncs = counters["host_syncs"].value / searches
+            fn = (lambda: ix.select_batch(queries, p)) \
+                if entry == "select_batch" else (lambda: ix.select(
+                    queries[0], p))
+            busy, idle, events = profile_launches(fn)
+            row[entry] = (f"{entry}: recall@{HNSW_K} {recall:.4f}, host "
+                          f"{host_ms:.3f} ms, device {busy:.4f} ms, idle "
+                          f"share {idle:.4f}, {steps:.1f} beam steps, "
+                          f"{syncs:.2f} host syncs, {events} device "
+                          "launches per search")
+        log(f"[hnsw main] ef {ef} (beam width {max(16, 1 << (ef - 1).bit_length())}"
+            f"): " + "; ".join(row.values()) + f" on {card}")
+    log(f"[hnsw main] select_batch({len(queries)}) and {len(queries)} "
+        f"selects at ef {HNSW_EFS}: ranks are the float64 inner products "
+        f"(rtol 1e-4), recall@{HNSW_K} >= {HNSW_MIN_RECALL} at ef "
+        f"{HNSW_RECALL_EF} and falls by no more than {HNSW_RECALL_DROP}")
+
+
+def phase_hnsw_sq8(card: str, ix, base, queries) -> None:
+    """SQ8 HNSW on the same graph (the build reads the fp32 rows with or
+    without quantization, so the graph is loaded from the fp32 index)."""
+    from reindexer_tpu_torch import HnswSearchParams
+    from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
+    sq = HnswIndex(hnsw_def("vec", HNSW_D, HNSW_EFC, quant=True),
+                   ix.keeper.device)
+    sq.load_state_dict(ix.state_dict())
+    p = HnswSearchParams(k=HNSW_K, ef=HNSW_RECALL_EF)
+    t0 = time.perf_counter()
+    res = [ids_ranks(r) for r in sq.select_batch(queries, p)]
+    first_s = time.perf_counter() - t0
+    if not sq._quant.active or sq._quant.codes.dtype != torch.uint8:
+        raise AssertionError("the SQ8 store is not active")
+    s64, top = hnsw_oracle(base, queries, sq.keeper.device)
+    recall = check_hnsw(res, s64, top, "hnsw sq8")
+    if recall < HNSW_SQ8_MIN_RECALL:
+        raise AssertionError(f"hnsw sq8: recall@{HNSW_K} {recall:.4f} < "
+                             f"{HNSW_SQ8_MIN_RECALL} at ef {HNSW_RECALL_EF}")
+    busy, idle, events = profile_launches(lambda: sq.select_batch(queries, p))
+    log(f"[hnsw sq8] {HNSW_N} x {HNSW_D} u8 codes ({sq._quant.codes.nbytes / 2 ** 20:.1f}"
+        f" MiB): select_batch({len(queries)}) at ef {HNSW_RECALL_EF}: "
+        f"recall@{HNSW_K} {recall:.4f}, ranks exact after the fp32 rescore; "
+        f"first call (quantize) {first_s:.2f} s; device {busy:.4f} ms, idle "
+        f"share {idle:.4f}, {events} device launches per search on {card}")
+
+
+def phase_hnsw_api(card: str, dev) -> None:
+    """The HNSW public API at bench_hnsw's size: 20,000 x 96 IP filled by
+    db.upsert, 1,000 deletes; selects, knn_batch(64), SQL KNN, a streaming
+    query and its page, and an array field of 3 vectors a document."""
+    from reindexer_tpu_torch import (HnswSearchParams, IndexDef, IndexOpts,
+                                     Query, Reindexer)
+    rng = np.random.default_rng(1)
+    base = rng.normal(size=(HNSW_API_N, HNSW_API_D)).astype(np.float32)
+    queries = rng.normal(size=(64, HNSW_API_D)).astype(np.float32)
+    deleted = np.random.default_rng(SEED + 5).choice(
+        HNSW_API_N, size=DELETES, replace=False)
+    alive = np.ones(HNSW_API_N, dtype=bool)
+    alive[deleted] = False
+    t0 = time.perf_counter()
+    db = Reindexer(device=dev)
+    db.open_namespace("hnsw", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        IndexDef("grp", "hash", "int"),
+        hnsw_def("vec", HNSW_API_D, HNSW_API_EFC)])
+    rows = base.tolist()
+    for i in range(HNSW_API_N):
+        db.upsert("hnsw", {"id": i, "grp": i % 3, "vec": rows[i]})
+    for i in deleted.tolist():
+        db.delete("hnsw", {"id": i})
+    t_up = time.perf_counter() - t0
+    p = HnswSearchParams(k=HNSW_K, ef=HNSW_API_EF)
+
+    def knn(qv, params=p):
+        return Query("hnsw").where_knn("vec", qv, params)
+
+    def docs(res):
+        return [d["id"] for d in res.docs()], np.asarray(res.ranks())
+
+    t0 = time.perf_counter()
+    db.select(knn(queries[0]))              # commits: builds the graph
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [docs(db.select(knn(v))) for v in queries]
+    qps = len(queries) / (time.perf_counter() - t0)
+    batch = [docs(r) for r in db.knn_batch("hnsw", "vec", queries, p)]
+    vec = ", ".join(repr(float(x)) for x in queries[1])
+    sql = [docs(db.select(f"SELECT * FROM hnsw WHERE KNN(vec, [{vec}], "
+                          f"k={HNSW_K}, ef={HNSW_API_EF})"))]
+    s64, top = hnsw_oracle(base, queries, dev, alive)
+    recall = {"select": check_hnsw(single, s64, top, "hnsw api select"),
+              "knn_batch(64)": check_hnsw(batch, s64, top,
+                                          "hnsw api knn_batch")}
+    check_hnsw(sql, s64[1:2], top[1:2], "hnsw api SQL")
+    if sql[0][0] != single[1][0]:
+        raise AssertionError("the SQL KNN differs from the same select")
+    for tag, r in recall.items():
+        if r < HNSW_API_MIN_RECALL:
+            raise AssertionError(f"hnsw api {tag}: recall@{HNSW_K} {r:.4f} "
+                                 f"< {HNSW_API_MIN_RECALL}")
+    # streaming: KNN with neither k nor radius, post-filtered by grp
+    streamed = HnswSearchParams()
+    q_s = queries[2]
+    full = db.select(Query("hnsw").where("grp", "=", 1).where_knn(
+        "vec", q_s, streamed).limit(20))
+    page = db.select(Query("hnsw").where("grp", "=", 1).where_knn(
+        "vec", q_s, streamed).offset(5).limit(5))
+    ten = db.select(Query("hnsw").where("grp", "=", 1).where_knn(
+        "vec", q_s, streamed).limit(10))
+    ids10 = [d["id"] for d in ten.docs()]
+    ranks10 = [it.rank for it in ten]
+    s2 = s64[2].cpu().numpy()
+    want = [i for i in np.argsort(-s2, kind="stable").tolist()
+            if i % 3 == 1 and alive[i]][:10]
+    if (len(ids10) != 10 or any(i % 3 != 1 or not alive[i] for i in ids10)
+            or ranks10 != sorted(ranks10, reverse=True)
+            or len(set(ids10) & set(want)) < 8):
+        raise AssertionError(f"hnsw api streaming: {ids10} against the "
+                             f"filtered oracle {want}")
+    if [d["id"] for d in page.docs()] != [d["id"] for d in full.docs()][5:10]:
+        raise AssertionError("hnsw api streaming: offset(5).limit(5) is not "
+                             "the page of limit(20)")
+    arr = phase_hnsw_array(dev)
+    log(f"[hnsw api] set-up: {HNSW_API_N} upserts + {DELETES} deletes in "
+        f"{t_up:.1f} s, first select (the build) {t_build:.2f} s; 64 selects "
+        f"(recall@{HNSW_K} {recall['select']:.4f}, {qps:.1f} qps, host clock)"
+        f", knn_batch(64) (recall@{HNSW_K} {recall['knn_batch(64)']:.4f}) "
+        f"and SQL KNN at ef {HNSW_API_EF}: ranks the float64 inner products, "
+        f"no deleted row; streaming where(grp = 1).limit(10): "
+        f"{len(set(ids10) & set(want))}/10 of the filtered oracle, its "
+        f"offset(5).limit(5) page equal to limit(20)[5:10]; {arr}")
+    for tag, fn in (("knn_batch(64)", lambda: db.knn_batch(
+            "hnsw", "vec", queries, p)),
+            ("select", lambda: db.select(knn(queries[0])))):
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        busy, idle, events = profile_launches(fn)
+        log(f"[hnsw api] {tag} ef {HNSW_API_EF}: host "
+            f"{1e3 * statistics.median(secs):.3f} ms, device {busy:.4f} ms, "
+            f"idle share {idle:.4f}, {events} device launches per call on "
+            f"{card}")
+
+
+def phase_hnsw_array(dev) -> str:
+    """An array HNSW field, 3 vectors a document: each document comes back
+    once, ranked by its best vector. Returns the summary."""
+    from reindexer_tpu_torch import (HnswSearchParams, IndexDef, IndexOpts,
+                                     Query, Reindexer)
+    rng = np.random.default_rng(SEED + 6)
+    vecs = rng.normal(size=(HNSW_ARRAY_DOCS, HNSW_ARRAY_VECS,
+                            HNSW_API_D)).astype(np.float32)
+    queries = rng.normal(size=(16, HNSW_API_D)).astype(np.float32)
+    db = Reindexer(device=dev)
+    db.open_namespace("harr", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        hnsw_def("vec", HNSW_API_D, HNSW_API_EFC, is_array=True)])
+    for i in range(HNSW_ARRAY_DOCS):
+        db.upsert("harr", {"id": i, "vec": vecs[i].tolist()})
+    best = np.einsum("nvd,qd->qnv", vecs.astype(np.float64),
+                     queries.astype(np.float64)).max(axis=2)
+    hits = 0
+    for qi, q in enumerate(queries):
+        res = db.select(Query("harr").where_knn("vec", q, HnswSearchParams(
+            k=HNSW_K, ef=HNSW_API_EF)))
+        ids = [d["id"] for d in res.docs()]
+        if len(ids) != len(set(ids)) or not ids:
+            raise AssertionError(f"hnsw array: query {qi} returned {ids}")
+        if not np.allclose(res.ranks(), best[qi, ids], rtol=RANK_RTOL,
+                           atol=1e-6):
+            raise AssertionError(f"hnsw array: query {qi}: a document's rank "
+                                 "is not its best vector's")
+        hits += len(set(ids) & set(np.argsort(-best[qi])[:HNSW_K].tolist()))
+    recall = hits / (HNSW_K * len(queries))
+    if recall < HNSW_API_MIN_RECALL:
+        raise AssertionError(f"hnsw array: document recall@{HNSW_K} "
+                             f"{recall:.4f} < {HNSW_API_MIN_RECALL}")
+    return (f"array field ({HNSW_ARRAY_DOCS} documents x {HNSW_ARRAY_VECS} "
+            f"vectors): each document once, ranked by its best vector, "
+            f"document recall@{HNSW_K} {recall:.4f}")
+
+
+def phase_hnsw(card: str, dev) -> None:
+    ix, base, queries = phase_hnsw_setup(dev)
+    phase_hnsw_cpu_agree(ix, queries)
+    phase_hnsw_main(card, ix, base, queries)
+    phase_hnsw_sq8(card, ix, base, queries)
+    del ix
+    torch.cuda.empty_cache()
+    phase_hnsw_api(card, dev)
+
+
 def main() -> int:
+    global HNSW_N
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
               "a GPU", file=sys.stderr)
         return 1
     card, kind = phase_identity()
+    if sys.argv[1:2] == ["--hnsw-build"]:
+        HNSW_N = int(sys.argv[2])
+        phase_hnsw_setup(torch.device("cuda", 0))
+        return 0
     phase_build()
     dev = torch.device("cuda", 0)
     stats = phase_kernels(dev)
@@ -1589,6 +2037,7 @@ def main() -> int:
     del ix
     torch.cuda.empty_cache()
     launches["ivf_seg_scan"] += phase_ivf_api(card, dev)
+    phase_hnsw(card, dev)
     loaded = [m for m in ("jax", "reindexer_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"{' and '.join(loaded)} got imported")

@@ -14,10 +14,11 @@ the type constants are the port's copies of the reference's host layers
     res = db.select(Query("items").where_knn("vec", qvec, KnnSearchParams(k=10)))
 
 Ported so far: the brute-force (`vec_bf`) vector index, fp32 and SQ8
-(modes exact, approx, approx_rerank), and the IVF (`ivf`) index, with six
-hand-written CUDA kernels, and every host-only index type. HNSW, full text,
-array vector indexes, storage and meshes raise NotImplementedError (see
-ROADMAP.md).
+(modes exact, approx, approx_rerank), the IVF (`ivf`) index, with six
+hand-written CUDA kernels, the HNSW (`hnsw`) index, fp32 and SQ8, with
+streaming KNN (plain PyTorch: its JAX device code has no Pallas kernel),
+array vector indexes over any of the three, and every host-only index type.
+Full text, storage and meshes raise NotImplementedError (see ROADMAP.md).
 """
 from .core.database import Reindexer
 from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,

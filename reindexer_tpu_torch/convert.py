@@ -60,3 +60,51 @@ def quant_state_from_reference(state: dict) -> dict:
                           f"[dims], got {lo.shape} and {alpha.shape}")
     return {"lo": lo, "alpha": alpha,
             "quantized_count": int(state["quantized_count"])}
+
+
+def hnsw_state_from_reference(state: dict) -> dict:
+    """The port's HNSW state from a reindexer_tpu `HnswIndex.state_dict()`:
+    {"keeper": as keeper_state_from_reference, "levels": i32[cap] (-1: not
+    in the graph), "deleted": bool[cap], "links0": i32[cap, 2M], "upper":
+    top-first list of i32[cap, M], "host_vecs": f32[cap, dims], "entry",
+    "max_level": int}, all numpy in both packages; this checks the shapes,
+    types and link ids and copies. Load the result with
+    `HnswIndex.load_state_dict`. A mesh snapshot ("mesh_shards") is refused:
+    mesh-resident indexes are not ported yet (ROADMAP A12)."""
+    if "mesh_shards" in state:
+        raise ParamsError("a mesh HNSW snapshot needs a mesh, which "
+                          "reindexer_tpu_torch does not support yet (ROADMAP "
+                          "A12)")
+    keeper = keeper_state_from_reference(state["keeper"])
+    dims = keeper["data"].shape[1]
+    levels = np.array(state["levels"], dtype=np.int32, copy=True)
+    deleted = np.array(state["deleted"], dtype=np.bool_, copy=True)
+    links0 = np.array(state["links0"], dtype=np.int32, copy=True)
+    upper = [np.array(u, dtype=np.int32, copy=True) for u in state["upper"]]
+    host_vecs = np.array(state["host_vecs"], dtype=np.float32, copy=True)
+    entry, max_level = int(state["entry"]), int(state["max_level"])
+    cap = levels.shape[0]
+    if (levels.ndim != 1 or deleted.shape != (cap,) or links0.ndim != 2
+            or links0.shape[0] != cap or host_vecs.shape != (cap, dims)
+            or cap < keeper["data"].shape[0]):
+        raise ParamsError(
+            f"HNSW state must hold levels [cap], deleted [cap], links0 [cap, "
+            f"2M] and host_vecs [cap, {dims}] with cap >= the keeper's "
+            f"{keeper['data'].shape[0]} rows, got {levels.shape}, "
+            f"{deleted.shape}, {links0.shape} and {host_vecs.shape}")
+    width = links0.shape[1] // 2
+    for table in [links0] + upper:
+        if table.shape != (cap, table.shape[1]) or (
+                table is not links0 and table.shape[1] != width):
+            raise ParamsError(f"HNSW upper layers must be [{cap}, {width}], "
+                              f"got {table.shape}")
+        if ((table < -1) | (table >= cap)).any():
+            raise ParamsError("HNSW links must be row ids in [-1, "
+                              f"{cap}), got {table.min()}..{table.max()}")
+    if not -1 <= entry < cap or max_level > len(upper) or (
+            entry >= 0 and levels[entry] != max_level):
+        raise ParamsError(f"HNSW entry {entry} at level {max_level} does not "
+                          f"fit {len(upper)} upper layers and its levels")
+    return {"keeper": keeper, "levels": levels, "deleted": deleted,
+            "links0": links0, "upper": upper, "host_vecs": host_vecs,
+            "entry": entry, "max_level": max_level}

@@ -3,9 +3,11 @@ reindexer_tpu/core/database.py).
 
 The port's copy of the reference's facade, with its vector indexes on an
 explicit torch device: `Reindexer(device="cuda")` on the GPU,
-`Reindexer(device="cpu")` for the kernels' plain PyTorch versions.
-Persistent storage, device meshes, full text and the HTTP embedder are not
-ported yet: they raise NotImplementedError naming their ROADMAP item.
+`Reindexer(device="cpu")` for the kernels' plain PyTorch versions. The
+vector engines (vec_bf, hnsw, ivf, array fields over each) build and search
+on that device. Persistent storage, device meshes, full text and the HTTP
+embedder are not ported yet: they raise NotImplementedError naming their
+ROADMAP item.
 
 The reference's notes follow.
 

@@ -2,9 +2,10 @@
 switch, cpp_src/core/index/index.cc:80-115).
 
 Scalar, composite and rtree indexes are the port's copies of the host-only
-reference indexes. `vec_bf` and `ivf` build the port's brute-force and IVF
-engines on the namespace's torch device. Engines not ported yet (HNSW, full
-text, array vector indexes) raise NotImplementedError.
+reference indexes. `vec_bf`, `hnsw` and `ivf` build the port's brute-force,
+HNSW and IVF engines on the namespace's torch device, each wrapped in an
+`ArrayVectorIndex` when the definition is an array. Full text is not ported
+yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from .scalar import (CompositeIndex, HashIndex, StoreIndex, TreeIndex,
                      TtlIndex, UuidIndex)
 
 _NOT_PORTED = {    # index type -> (what, its ROADMAP item)
-    IndexType.HNSW: ("HNSW (and streaming KNN)", "A7"),
     IndexType.TEXT: ("full-text", "A9"),
 }
 
@@ -49,14 +49,20 @@ def create_index(idef: IndexDef, device: torch.device) -> Index:
     if idef.index_type == IndexType.RTREE:
         from .rtree import RTreeIndex
         return RTreeIndex(idef)
-    if idef.index_type in (IndexType.VEC_BF, IndexType.IVF):
-        if idef.opts.is_array:
-            raise NotImplementedError(
-                "array vector indexes are not yet ported to "
-                "reindexer_tpu_torch, see ROADMAP A10")
-        if idef.index_type == IndexType.IVF:
+    if idef.index_type in (IndexType.VEC_BF, IndexType.HNSW, IndexType.IVF):
+        if idef.index_type == IndexType.VEC_BF:
+            from .vector.brute_force import BruteForceIndex
+            inner = BruteForceIndex(idef, device)
+        elif idef.index_type == IndexType.HNSW:
+            from .vector.hnsw import HnswIndex
+            inner = HnswIndex(idef, device)
+        else:
             from .vector.ivf import IvfIndex
-            return IvfIndex(idef, device)
-        from .vector.brute_force import BruteForceIndex
-        return BruteForceIndex(idef, device)
+            inner = IvfIndex(idef, device)
+        if idef.opts.is_array:
+            # multiple vectors per document with per-doc dedup
+            # (reference: float_vector.md:624-630 array vector indexes)
+            from .vector.array_adapter import ArrayVectorIndex
+            return ArrayVectorIndex(idef, inner)
+        return inner
     raise ParamsError(f"unknown index type: {idef.index_type}")

@@ -24,6 +24,11 @@ from .keeper import VectorKeeper
 
 
 class FloatVectorIndexBase(Index):
+    # True for an index whose readers may hold the keeper's tensors across
+    # mutations (HNSW's streaming sessions): the keeper then writes new
+    # tensors instead of updating them in place
+    KEEPER_COPY_ON_WRITE = False
+
     def __init__(self, definition: IndexDef, device: torch.device):
         super().__init__(definition)
         vo = definition.vector_opts
@@ -32,12 +37,13 @@ class FloatVectorIndexBase(Index):
         self.dims = vo.dims
         self.metric = vo.metric
         self.ordering = metric_ordering(self.metric)
-        self.keeper = VectorKeeper(vo.dims, vo.metric, device, vo.start_size)
+        self.keeper = VectorKeeper(vo.dims, vo.metric, device, vo.start_size,
+                                   copy_on_write=self.KEEPER_COPY_ON_WRITE)
 
     def attach_mesh(self, ctx) -> None:
         raise NotImplementedError(
             "mesh-resident vector indexes are not yet ported to "
-            "reindexer_tpu_torch, see ROADMAP (multi-device)")
+            "reindexer_tpu_torch, see ROADMAP A12 (multi-device)")
 
     # --- Index interface ------------------------------------------------
     def upsert(self, row_id: int, values: Any) -> None:

@@ -13,6 +13,16 @@ turn into a score of about -1e30. Removed rows therefore keep their stale
 data, and the JAX keeper's zeroed-rows rule and zero-vector nudge are not
 needed. A host mirror of the validity mask serves the host-side questions
 (count, ANY/EMPTY, get_host, state_dict) without a device round trip.
+
+`sq` is the true |b|^2 of every row as the JAX keeper keeps it: written
+with the row, left stale when the row is removed (the HNSW graph goes on
+scoring removed nodes, which it still traverses), rounded as the JAX
+keeper's `np.sum(v * v, dtype=np.float32)`. As in the JAX keeper, a flush
+or bulk_load into an empty keeper writes the whole table, so rows it does
+not write read as zero. With `copy_on_write` (the HNSW index) a mutation
+writes new `data` and `sq` tensors instead of updating them in place, so a
+streaming session that holds the old ones keeps its snapshot, as JAX
+arrays do.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ _MIN_CAPACITY = 2048
 
 class VectorKeeper:
     def __init__(self, dims: int, metric: VectorMetric, device: torch.device,
-                 start_size: int = _MIN_CAPACITY):
+                 start_size: int = _MIN_CAPACITY, copy_on_write: bool = False):
         if dims <= 0:
             raise ParamsError("vector dims must be > 0")
         self.dims = dims
@@ -44,8 +54,10 @@ class VectorKeeper:
         self.capacity = cap
         self.data = torch.zeros((cap, dims), dtype=torch.float32,
                                 device=self.device)
+        self.sq = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self._sq_eff = torch.full((cap,), SQ_EFF_BIG, dtype=torch.float32,
                                   device=self.device)
+        self.copy_on_write = copy_on_write
         self.valid = np.zeros((cap,), dtype=np.bool_)   # host mirror
         self.count = 0       # number of valid vectors
         self._pending: dict[int, Optional[np.ndarray]] = {}
@@ -71,10 +83,24 @@ class VectorKeeper:
         self._pending[row_id] = None
         self._max_row = max(self._max_row, row_id)
 
-    def _sq_eff_of(self, vals: np.ndarray) -> np.ndarray:
-        if self.metric == VectorMetric.L2:
-            return np.sum(vals * vals, axis=1, dtype=np.float32)
-        return np.zeros((len(vals),), dtype=np.float32)
+    def _sq_eff_of(self, sq: np.ndarray) -> np.ndarray:
+        """sq_eff of valid rows whose |b|^2 is sq."""
+        return sq if self.metric == VectorMetric.L2 else np.zeros_like(sq)
+
+    def _fresh_tables(self) -> None:
+        """New zero data and sq tables (an empty keeper's flush or
+        bulk_load writes the whole table, as the JAX keeper's does)."""
+        self.data = torch.zeros_like(self.data)
+        self.sq = torch.zeros_like(self.sq)
+
+    def _own_tables(self, fresh: bool) -> None:
+        """Make data and sq safe to update in place: zero tables for an
+        empty keeper, copies under copy_on_write."""
+        if fresh:
+            self._fresh_tables()
+        elif self.copy_on_write:
+            self.data = self.data.clone()
+            self.sq = self.sq.clone()
 
     # --- device sync ----------------------------------------------------
     def _grow_to(self, need: int) -> None:
@@ -86,6 +112,8 @@ class VectorKeeper:
         pad = cap - self.capacity
         self.data = torch.cat([self.data, torch.zeros(
             (pad, self.dims), dtype=torch.float32, device=self.device)])
+        self.sq = torch.cat([self.sq, torch.zeros(
+            (pad,), dtype=torch.float32, device=self.device)])
         self._sq_eff = torch.cat([self._sq_eff, torch.full(
             (pad,), SQ_EFF_BIG, dtype=torch.float32, device=self.device)])
         self.valid = np.concatenate([self.valid, np.zeros(pad, np.bool_)])
@@ -104,6 +132,7 @@ class VectorKeeper:
         all_rows = np.fromiter((r for r, _ in items), dtype=np.int64,
                                count=len(items))
         prev_valid = int(self.valid[all_rows].sum())
+        fresh = self.count == 0
         set_items = [(r, v) for r, v in items if v is not None]
         del_rows = np.asarray([r for r, v in items if v is None],
                               dtype=np.int64)
@@ -115,18 +144,22 @@ class VectorKeeper:
             rows = np.fromiter((r for r, _ in set_items), dtype=np.int64,
                                count=len(set_items))
             vals = np.stack([v for _, v in set_items])
+            sq = np.sum(vals * vals, axis=1, dtype=np.float32)
             rows_d = self._rows(rows)
+            self._own_tables(fresh)
             self.data.index_copy_(0, rows_d,
                                   torch.from_numpy(vals).to(self.device))
+            self.sq.index_copy_(0, rows_d, torch.from_numpy(sq).to(
+                self.device))
             self._sq_eff.index_copy_(0, rows_d, torch.from_numpy(
-                self._sq_eff_of(vals)).to(self.device))
+                self._sq_eff_of(sq)).to(self.device))
             self.valid[rows] = True
 
     def clear(self) -> None:
         self._pending.clear()
         self._max_row = -1
         self.count = 0
-        self.data.zero_()
+        self._fresh_tables()
         self._sq_eff.fill_(SQ_EFF_BIG)
         self.valid[:] = False
 
@@ -135,7 +168,8 @@ class VectorKeeper:
         path for loaders and benchmarks). With `upload_bf16` set, a fresh
         keeper (count 0) stores the rows rounded to bf16 (to nearest even,
         as ml_dtypes rounds in the JAX keeper), ships them as bf16 and
-        widens them on the device; |b|^2 comes from the rounded rows."""
+        widens them on the device; |b|^2 comes from the rounded rows. Into
+        an empty keeper, rows outside the block become zero."""
         matrix = np.ascontiguousarray(matrix, dtype=np.float32)
         if matrix.ndim != 2 or matrix.shape[1] != self.dims:
             raise ParamsError("bulk_load expects [N, dims] float32")
@@ -146,13 +180,16 @@ class VectorKeeper:
         self._grow_to(start_row + n)
         end = start_row + n
         src = torch.from_numpy(matrix)
-        if self.upload_bf16 and self.count == 0:
+        fresh = self.count == 0
+        if self.upload_bf16 and fresh:
             src = src.to(torch.bfloat16)
-            if self.metric == VectorMetric.L2:
-                matrix = src.to(torch.float32).numpy()
+            matrix = src.to(torch.float32).numpy()
+        sq = np.sum(matrix * matrix, axis=1, dtype=np.float32)
+        self._own_tables(fresh)
         self.data[start_row:end] = src.to(self.device).to(torch.float32)
+        self.sq[start_row:end] = torch.from_numpy(sq).to(self.device)
         self._sq_eff[start_row:end] = torch.from_numpy(
-            self._sq_eff_of(matrix)).to(self.device)
+            self._sq_eff_of(sq)).to(self.device)
         self.count += n - int(self.valid[start_row:end].sum())
         self.valid[start_row:end] = True
         self._max_row = max(self._max_row, end - 1)
@@ -197,7 +234,7 @@ class VectorKeeper:
                 "valid": self.valid[:n].copy()}
 
     def load_state_dict(self, state: dict) -> None:
-        data = np.ascontiguousarray(state["data"], dtype=np.float32)
+        data = np.array(state["data"], dtype=np.float32, copy=True)
         valid = np.asarray(state["valid"], dtype=np.bool_)
         if data.ndim != 2 or data.shape[1] != self.dims or valid.shape != (
                 data.shape[0],):
@@ -210,7 +247,9 @@ class VectorKeeper:
             return
         self._grow_to(n)
         self.data[:n] = torch.from_numpy(data).to(self.device)
-        sq_eff = np.where(valid, self._sq_eff_of(data),
+        sq = np.sum(data * data, axis=1, dtype=np.float32)
+        self.sq[:n] = torch.from_numpy(sq).to(self.device)
+        sq_eff = np.where(valid, self._sq_eff_of(sq),
                           np.float32(SQ_EFF_BIG)).astype(np.float32)
         self._sq_eff[:n] = torch.from_numpy(sq_eff).to(self.device)
         self.valid[:n] = valid

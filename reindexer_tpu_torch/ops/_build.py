@@ -53,15 +53,16 @@ build_info: dict[str, tuple[float, str]] = {}
 
 
 class Counter:
-    """A thread-safe integer count (kernel launches, engine reruns)."""
+    """A thread-safe integer count (kernel launches, engine reruns, beam
+    steps)."""
 
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:

@@ -1,9 +1,9 @@
 """Query executor (port of reindexer_tpu/query/executor.py).
 
-The port's copy of the reference's host-side executor. The seams that reach
-an engine the port lacks stop here: a streaming KNN query raises the
-reference's "HNSW indexes only" QueryError (no index of the port is HNSW),
-WAL queries raise NotImplementedError (replication, ROADMAP A13), and the
+The port's copy of the reference's host-side executor, streaming KNN
+included (reindexer_tpu_torch/index/vector/streaming.py). The seams that
+reach a layer the port lacks stop here: WAL queries raise
+NotImplementedError (replication, ROADMAP A13), and the
 full-text select functions (highlight, snippet) have no full-text match to
 render, so they leave the documents as the reference does in that case.
 
@@ -229,19 +229,24 @@ class Selecter:
             exists = ns.exists_mask()
             explain_sel: list[dict] = []
             t_idx0 = time.perf_counter()
-            self._reject_streaming_knn(q)
-            rows = None
-            sources = {}
-            if not q.explain_:
-                rows = self._fast_and_rows(ns, q, exists)
+            streaming_entry = self._detect_streaming_knn(ns, q)
+            if streaming_entry is not None:
+                rows, stream_ranks, sources = self._stream_knn_rows(
+                    ns, q, streaming_entry, exists, explain_sel)
+                t_idx1 = time.perf_counter()
+            else:
+                rows = None
+                sources = {}
+                if not q.explain_:
+                    rows = self._fast_and_rows(ns, q, exists)
+                    if rows is None:
+                        rows = self._fast_or_rows(ns, q, exists)
                 if rows is None:
-                    rows = self._fast_or_rows(ns, q, exists)
-            if rows is None:
-                mask, sources = self._eval_entries(ns, q.entries, q,
-                                                   exists, explain_sel)
-                mask = mask & exists
-                rows = np.flatnonzero(mask).astype(np.int64)
-            t_idx1 = time.perf_counter()
+                    mask, sources = self._eval_entries(ns, q.entries, q,
+                                                       exists, explain_sel)
+                    mask = mask & exists
+                    rows = np.flatnonzero(mask).astype(np.int64)
+                t_idx1 = time.perf_counter()
 
             # --- equal-position re-verification (reference: equalPositions —
             # conditions on the listed array fields must hold at the same
@@ -258,7 +263,12 @@ class Selecter:
 
             # --- sorting
             t_sort0 = time.perf_counter()
-            rows, ranks_arr, sort_info = self._sort_rows(ns, q, rows, sources)
+            if streaming_entry is not None:
+                # streaming rows arrive already rank-ordered
+                ranks_arr, sort_info = stream_ranks, "rank(streaming)"
+            else:
+                rows, ranks_arr, sort_info = self._sort_rows(ns, q, rows,
+                                                             sources)
             t_sort1 = time.perf_counter()
 
             total = len(rows)
@@ -397,17 +407,80 @@ class Selecter:
     # streaming KNN (reference: NsSelecter::detectStreamingKnn,
     # nsselecter.cc:483-500 + knn_streaming_index_iterator.h)
     # ==================================================================
-    def _reject_streaming_knn(self, q: Query) -> None:
-        """Streaming mode (exactly one top-level KNN entry with neither k
-        nor radius) needs an HNSW index, and no index of the port is HNSW
-        yet (ROADMAP A7): such a query gets the reference's QueryError for a
-        streaming query on an index that is not HNSW."""
-        knn = [e for _, e in q.entries if isinstance(e, KnnQueryEntry)]
-        if len(knn) == 1 and getattr(knn[0].params, "is_streaming", False):
+    def _detect_streaming_knn(self, ns: Namespace,
+                              q: Query) -> Optional[KnnQueryEntry]:
+        """Streaming mode: exactly one top-level AND KNN entry with neither k
+        nor radius, on an HNSW index, non-hybrid, default rank sort."""
+        knn = [(op, e) for op, e in q.entries if isinstance(e, KnnQueryEntry)]
+        if len(knn) != 1:
+            return None
+        op, entry = knn[0]
+        if not getattr(entry.params, "is_streaming", False):
+            return None
+        from ..index.vector.hnsw import HnswIndex
+        index = ns.get_index(entry.field)
+        if not isinstance(index, HnswIndex):
             raise QueryError(
                 "KNN query without 'k' and 'radius' (streaming search) is "
-                f"supported for HNSW indexes only, but index '{knn[0].field}' "
+                f"supported for HNSW indexes only, but index '{entry.field}' "
                 "is not HNSW")
+        if op != OpType.AND:
+            raise QueryError("streaming KNN entry must be an AND condition")
+        # hybrid (FT+KNN) never streams
+        for _, e in q.entries:
+            if isinstance(e, QueryEntry):
+                idef = ns.index_def(e.field)
+                if idef is not None and idef.is_fulltext:
+                    raise QueryError(
+                        "Streaming KNN search does not support hybrid queries")
+        if q.sorts:
+            return None
+        return entry
+
+    def _stream_knn_rows(self, ns: Namespace, q: Query, entry: KnnQueryEntry,
+                         exists: np.ndarray, explain_sel: list,
+                         ) -> tuple[np.ndarray, np.ndarray, dict]:
+        from ..index.vector.hnsw import HnswIndex
+        from ..index.vector.streaming import (StreamingKnnEstimator,
+                                              open_streaming_session)
+        from ..ops.distance import scores_to_ranks
+        index: HnswIndex = ns.get_index(entry.field)  # type: ignore[assignment]
+        other = [(op, e) for op, e in q.entries if e is not entry]
+        mask, sources = self._eval_entries(ns, other, q, exists, explain_sel)
+        mask = mask & exists
+        items_count = ns.item_count()
+        max_iter = int(mask.sum())
+        limit = q.limit_ if q.limit_ is not None else items_count
+        needed = q.offset_ + limit
+        value = entry.value
+        if isinstance(value, str):
+            value = self.db.embed_query(ns, entry.field, value)
+        ef0 = StreamingKnnEstimator.estimate_ef(
+            max_iter, items_count, q.offset_, limit)
+        session = open_streaming_session(index, np.asarray(value,
+                                                           dtype=np.float32),
+                                         ef0)
+        acc_rows: list[int] = []
+        acc_scores: list[float] = []
+        presented = 0
+        while len(acc_rows) < needed and not session.exhausted:
+            batch = StreamingKnnEstimator.estimate_batch_size(
+                len(acc_rows), max(presented, 1), needed)
+            ids, scores = session.next_batch(batch)
+            presented += len(ids)
+            for i, s in zip(ids, scores):
+                if mask[int(i)]:
+                    acc_rows.append(int(i))
+                    acc_scores.append(float(s))
+        rows = np.asarray(acc_rows, dtype=np.int64)
+        scores = np.asarray(acc_scores, dtype=np.float32)
+        ranks = np.asarray(scores_to_ranks(scores, index.metric),
+                           dtype=np.float64)
+        src = RankSource(field=entry.field, kind="knn", ids=rows,
+                         ranks=ranks.astype(np.float32),
+                         ordering=index.ordering)
+        sources = {**sources, entry.field: src}
+        return rows, ranks, sources
 
     # ==================================================================
     # entries tree evaluation

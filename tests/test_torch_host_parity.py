@@ -257,9 +257,9 @@ def test_composite_text_index_matches_reference(query):
 def test_composite_hnsw_definition_and_plain_unported_types():
     """An `hnsw` definition is a float-vector index whatever field type it
     names (IndexDef makes it so in both packages): without dims both raise
-    the same ParamsError; with dims the reference builds its HNSW engine and
-    the port raises NotImplementedError naming ROADMAP A7, as for a plain
-    hnsw index. A plain `text` index raises naming A9."""
+    the same ParamsError; with dims both packages build their HNSW engine
+    from it, as from a plain hnsw definition (ported in slice 7). A plain
+    `text` index raises naming A9."""
     errors = []
     for pkg in (ref, port):
         with pytest.raises(pkg.ParamsError) as info:
@@ -273,12 +273,21 @@ def test_composite_hnsw_definition_and_plain_unported_types():
     ref_def = ref.IndexDef("ab", "hnsw", "composite", json_paths=("a", "b"),
                            vector_opts=ref.FloatVectorOpts(dims=4))
     assert not ref_def.is_composite
+    from reindexer_tpu.index.vector.hnsw import HnswIndex as RefHnsw
+    from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
+    for pkg, cls, defn in ((ref, RefHnsw, ref_def), (port, HnswIndex,
+                                                     composite)):
+        db = pkg.Reindexer(**({"device": "cpu"} if pkg is port else {}))
+        db.open_namespace("n", [pkg.IndexDef(
+            "id", "hash", "int", opts=pkg.IndexOpts(is_pk=True)), defn])
+        ix = db.get_namespace("n").get_index("ab")
+        assert isinstance(ix, cls) and ix.dims == 4
     pk = port.IndexDef("id", "hash", "int", opts=port.IndexOpts(is_pk=True))
-    for idef, item in ((composite, "A7"),
-                       (port.IndexDef("v", "hnsw", **opts), "A7"),
-                       (port.IndexDef("t", "text", "string"), "A9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            port.Reindexer(device="cpu").open_namespace("n", [pk, idef])
+    port.Reindexer(device="cpu").open_namespace(
+        "n", [pk, port.IndexDef("v", "hnsw", **opts)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        port.Reindexer(device="cpu").open_namespace(
+            "n", [pk, port.IndexDef("t", "text", "string")])
 
 
 def test_native_lanes_are_named_by_what_they_are_built_from(tmp_path):

@@ -623,11 +623,41 @@ def test_sql_dsl_nprobe_and_rebuild_action():
 
 
 def test_array_ivf_raises():
-    db = port.Reindexer(device="cpu")
-    db.open_namespace("x", [IndexDef("id", "hash", "int",
-                                     opts=IndexOpts(is_pk=True))])
-    with pytest.raises(NotImplementedError, match="A10"):
-        db.add_index("x", idef(4, VectorMetric.L2, 2, is_array=True))
+    """An array IVF field (ported in slice 7, ROADMAP A10) in both packages:
+    documents with one to three vectors each answer the same deduplicated
+    KNN at a full probe (each document once, with its best vector's rank),
+    before and after an update and a delete."""
+    rng = np.random.default_rng(20)
+    base, qs = clustered(rng, 240, 8, 4)
+    dbs = (ref.Reindexer(), port.Reindexer(device="cpu"))
+    for db, pkg in zip(dbs, PKGS):
+        db.open_namespace("v", [
+            pkg.IndexDef("id", "hash", "int", opts=pkg.IndexOpts(is_pk=True)),
+            pkg.IndexDef("vec", pkg.IndexType.IVF,
+                         opts=pkg.IndexOpts(is_array=True),
+                         vector_opts=pkg.FloatVectorOpts(
+                             dims=8, metric=pkg.VectorMetric.L2,
+                             centroids_count=4))])
+        for i in range(80):
+            db.upsert("v", {"id": i,
+                            "vec": base[3 * i: 3 * i + 1 + i % 3].tolist()})
+
+    def check():
+        for q in qs:
+            res = [db.select(pkg.Query("v").where_knn(
+                "vec", q, pkg.IvfSearchParams(k=12, nprobe=4)))
+                for db, pkg in zip(dbs, PKGS)]
+            assert_same(*res)
+            ids = _ids(res[1])
+            assert ids and len(ids) == len(set(ids))
+
+    check()
+    for db in dbs:
+        db.upsert("v", {"id": 7, "vec": [qs[0].tolist()]})
+        db.delete("v", {"id": 3})
+    check()
+    assert 3 not in _ids(dbs[1].select(Query("v").where_knn(
+        "vec", base[9], IvfSearchParams(k=12, nprobe=4))))
 
 
 # --- 4. the cases of tests/test_ivf.py on the port's engine --------------

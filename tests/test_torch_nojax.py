@@ -7,10 +7,12 @@ The run check is in a subprocess, so it never disturbs this worker's modules
 `reindexer_tpu` (exactly that top-level name, not `reindexer_tpu_torch`)
 through a sys.meta_path finder, imports reindexer_tpu_torch, runs a scalar
 namespace,
-a vec_bf namespace, an SQ8 vec_bf namespace (all three modes) and an IVF
-namespace (select, knn_batch, a radius-only select) on the CPU, checks that
-the engines not ported yet raise NotImplementedError, and that no JAX module
-got loaded, nor the JAX package. The static check reads every `*.py` of
+a vec_bf namespace, an SQ8 vec_bf namespace (all three modes), an IVF
+namespace (select, knn_batch, a radius-only select) and an HNSW namespace
+(select, knn_batch, a streaming query, an SQ8 HNSW field and an array
+field) on the CPU, checks that full text, not ported yet, raises
+NotImplementedError, and that no JAX module got loaded, nor the JAX
+package. The static check reads every `*.py` of
 the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
 reindexer_tpu` naming the JAX package.
 """
@@ -110,14 +112,34 @@ assert ivf.gather_scans.value == 1
 assert sorted(d["id"] for d in res.docs()) == sorted(
     np.flatnonzero(d2 < radius).tolist()), res.docs()
 
-for kind in ("hnsw",):
-    try:
-        db.add_index("vecs", IndexDef(kind, kind,
-                                      vector_opts=FloatVectorOpts(dims=8)))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError(f"{kind} did not raise")
+from reindexer_tpu_torch import HnswSearchParams
+from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
+db.open_namespace("hnsw", [
+    IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+    IndexDef("grp", "hash", "int"),
+    IndexDef("v", "hnsw", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, m=8, ef_construction=32)),
+    IndexDef("q", "hnsw", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, m=8, quantization=QuantizationConfig(
+            enabled=True, min_elements=16))),
+    IndexDef("a", "hnsw", opts=IndexOpts(is_array=True),
+             vector_opts=FloatVectorOpts(dims=8, metric=VectorMetric.L2))])
+for i in range(50):
+    db.upsert("hnsw", {"id": i, "grp": i % 2, "v": base[i].tolist(),
+                       "q": base[i].tolist(),
+                       "a": [base[i].tolist(), (base[i] + 50).tolist()]})
+assert isinstance(db.get_namespace("hnsw").get_index("v"), HnswIndex)
+for field in ("v", "q", "a"):
+    res = db.select(Query("hnsw").where_knn(field, base[7],
+                                            HnswSearchParams(k=3, ef=32)))
+    assert [d["id"] for d in res.docs()] == want, (field, res.docs())
+out = db.knn_batch("hnsw", "v", base[:2], HnswSearchParams(k=2, ef=16))
+assert [r.docs()[0]["id"] for r in out] == [0, 1]
+res = db.select(Query("hnsw").where("grp", "=", 1).where_knn(
+    "v", base[7], HnswSearchParams()).limit(5))
+odd = [i for i in np.argsort(d2).tolist() if i % 2 == 1][:5]
+assert [d["id"] for d in res.docs()] == odd, (res.docs(), odd)
+
 try:
     db.add_index("items", IndexDef("body", "text", "string"))
 except NotImplementedError:
