@@ -99,6 +99,31 @@ Phases, in order; any failure raises, so the exit code is not 0:
      field of 3 vectors a document (each document once, ranked by its best
      vector); then host ms, device ms and idle share of knn_batch(64) and
      select;
+ 15. full text, BASELINE config #4's shape on bench_ft1m's corpus (its
+     Wikipedia corpus is not in the repository): 1,000,000 docs x 30
+     zipf(1.3) words over 100,000, seed 4, FtFastConfig() defaults; the
+     build (both C++ host lanes loaded), the device mirrors and the dense
+     head, the commit-time warm;
+     bench_ft1m's four cases (8 single-term, 32 rare 2-term, 4 frequent
+     2-term queries, one process_batch of the 36) at the fitted routes,
+     each answer equal to the host merge's, with host ms, device ms, idle
+     share and the routes taken; every device route (sorted, dense, each
+     single and batched) against the host merge on the same queries (every
+     reference answer counted as a host merge; the largest rank difference
+     of each route printed), and an overflowing dense query re-run on the
+     host, counted; then the
+     `[ft routes]` table (2-term gathers of ~2^14 to ~2^21 postings: host
+     merge, device sorted, dense at batch 1, 8 and 36, the host's heap and
+     dense merges), from which the route constants are fitted
+     (tests/test_torch_ft.py ROUTE_TABLES);
+ 16. hybrid, BASELINE config #5 as bench_hybrid builds it: 100,000 docs, a
+     grp field, a text index over 8 zipf(1.3) words of 5,000, a 128-dim L2
+     vec_bf field, seed 13, on the card and on the CPU; grp < 5, match
+     'w3 w7', KNN k=100, top 20, fused by RRF and by a linear rerank: the
+     card's answer equals the CPU's, K1 and K2 launch (their launches join
+     the kernel line's), with host ms, device ms and idle share; then the
+     full-text public API on that namespace (Query.match, SQL, ft_batch,
+     highlight / snippet);
 then one JSON line for the kernels (with each one's bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100's peak for their
 type) and, last, the result line.
@@ -2011,6 +2036,443 @@ def phase_hnsw(card: str, dev) -> None:
     phase_hnsw_api(card, dev)
 
 
+# --- full text (BASELINE config #4's shape) and hybrid (config #5) --------
+
+FT_DOCS, FT_VOCAB, FT_WORDS, FT_SEED = 1_000_000, 100_000, 30, 4  # bench_ft1m
+FT_TOP = 20
+# ranks 0-255: fp32 rounding of the host merge's factorized A + idf * B
+# against the direct formula; the largest difference of a device route
+# from the host merge at 1M docs reads 6.1e-5 (4 ulps at 255) on an H100
+FT_RANK_ATOL = 1e-4
+FT_ROUTE_LOG2 = range(14, 22)   # 2-term gathers of ~2^14 .. ~2^21 postings
+FT_ROUTE_BATCHES = (1, 8, 36)
+HYB_DOCS, HYB_D, HYB_SEED = 100_000, 128, 13                   # bench_hybrid
+
+
+def ft_counters() -> dict:
+    from reindexer_tpu_torch.ft import selector
+    return {k: getattr(selector, k) for k in (
+        "host_merges", "sorted_scores", "dense_scores", "fielded_scores",
+        "dense_overflows", "native_fallbacks")}
+
+
+def counts_str(counters: dict) -> str:
+    return ", ".join(f"{k} {c.value}" for k, c in counters.items())
+
+
+@contextlib.contextmanager
+def ft_route(route: str | None):
+    """Pins the selector to one route: "host" (the C++ merge for every
+    gather), "sorted" (the device sorted path), "dense" (the dense route for
+    every resident query), "runs" / "hostdense" (the host's heap or dense
+    merge); None leaves the fitted constants."""
+    from reindexer_tpu_torch.ft import device_dense as dd
+    from reindexer_tpu_torch.ft.selector import FtSelector
+    saved = (dd.DEVICE_MIN, dd.DEVICE_MIN_SINGLE,
+             FtSelector.HOST_SCORE_MAX, FtSelector.DENSE_MIN)
+    try:
+        if route in ("host", "runs", "hostdense", "sorted"):
+            dd.DEVICE_MIN = dd.DEVICE_MIN_SINGLE = 1 << 40
+            FtSelector.HOST_SCORE_MAX = -1 if route == "sorted" else 1 << 40
+            if route == "runs":
+                FtSelector.DENSE_MIN = 1 << 40
+            elif route == "hostdense":
+                FtSelector.DENSE_MIN = 0
+        elif route == "dense":
+            dd.DEVICE_MIN = dd.DEVICE_MIN_SINGLE = 1
+        yield
+    finally:
+        (dd.DEVICE_MIN, dd.DEVICE_MIN_SINGLE,
+         FtSelector.HOST_SCORE_MAX, FtSelector.DENSE_MIN) = saved
+
+
+def ft_host_answers(sel, qs: list) -> list:
+    """The host merge's answers to qs, each counted as a host merge: a
+    reference answered elsewhere (a C++ lane that did not build) fails."""
+    counters = ft_counters()
+    for c in counters.values():
+        c.reset()
+    with ft_route("host"):
+        want = [sel.process(q) for q in qs]
+    if counters["host_merges"].value != len(qs) or any(
+            c.value for k, c in counters.items() if k != "host_merges"):
+        raise AssertionError(f"ft reference: {len(qs)} queries, "
+                             f"{counts_str(counters)}")
+    return want
+
+
+def ft_agree(want, got, tag: str) -> float:
+    """Two FtSelectResults of one query: as many results, ranks within
+    FT_RANK_ATOL position by position, ids equal except near-ties at the
+    cut (compared as sets). Returns the largest rank difference."""
+    if len(got.ids) != len(want.ids):
+        raise AssertionError(f"{tag}: {len(got.ids)} results, want "
+                             f"{len(want.ids)}")
+    if not len(want.ids):
+        return 0.0
+    if not np.allclose(got.ranks, want.ranks, rtol=0, atol=FT_RANK_ATOL):
+        bad = int(np.argmax(np.abs(got.ranks - want.ranks)))
+        raise AssertionError(f"{tag}: rank {bad} is {got.ranks[bad]}, want "
+                             f"{want.ranks[bad]}")
+    kth = float(want.ranks[-1])
+    score = dict(zip(want.ids.tolist(), want.ranks.tolist()))
+    score.update(zip(got.ids.tolist(), got.ranks.tolist()))
+    off = [i for i in set(want.ids.tolist()) ^ set(got.ids.tolist())
+           if abs(score[i] - kth) > FT_RANK_ATOL]
+    if off:
+        raise AssertionError(f"{tag}: ids {off[:5]} differ away from the cut")
+    return float(np.max(np.abs(got.ranks - want.ranks)))
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(secs)
+
+
+def ft_device(fn, n: int = 3) -> str:
+    """Device ms and idle share of fn under torch.profiler, or the note that
+    its trace held no device event (a host route launches nothing)."""
+    per, wall_ms = profile_device(fn, n, host=True)
+    if not per:
+        return "device 0 (no device event in the trace)"
+    busy = sum(per.values())
+    return f"device {busy:.4f} ms, idle share {1.0 - busy * n / wall_ms:.4f}"
+
+
+def phase_ft_setup(card: str, dev):
+    """BASELINE config #4's shape on bench_ft1m's corpus: the build, the
+    device mirrors, the commit-time warm."""
+    from reindexer_tpu_torch.ft import dataholder
+    from reindexer_tpu_torch.ft.config import FtFastConfig
+    from reindexer_tpu_torch.ft.dataholder import FtDataHolder
+    from reindexer_tpu_torch.ft.selector import FtSelector
+    # the build's tokenizer, the typo dictionary and the host merge are C++
+    # lanes: a lane that fails to build would quietly take a slower route
+    for lane in (dataholder._native_module, dataholder._typos_native_module):
+        if lane() is None:
+            raise AssertionError(f"ft: {lane.__name__} did not build")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(FT_SEED)
+    vocab = np.array([f"w{i}" for i in range(FT_VOCAB)], dtype=object)
+    zipf = np.minimum(rng.zipf(1.3, size=(FT_DOCS, FT_WORDS)) - 1,
+                      FT_VOCAB - 1)
+    docs = [(i, [" ".join(vocab[row])]) for i, row in enumerate(zipf)]
+    t_data = time.perf_counter() - t0
+    cfg = FtFastConfig()
+    holder = FtDataHolder(cfg, ["text"], dev)
+    t0 = time.perf_counter()
+    holder.build(docs, FT_DOCS)
+    t_build = time.perf_counter() - t0
+    del docs
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mirrors = holder.device_arrays()
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    sel = FtSelector(holder, cfg)
+    t0 = time.perf_counter()
+    warmed = sel.warm_frequent_singles(cfg.warmup_frequent_words)
+    t_warm = time.perf_counter() - t0
+    dd = sel._device_dense()
+    t0 = time.perf_counter()
+    resident = dd.ensure_built()
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    mib = sum(t.nbytes for k, t in mirrors.items() if k != "cap") / 2 ** 20
+    dense_mib = (dd.S.nbytes + dd.M.nbytes) / 2 ** 20 if resident else 0.0
+    log(f"[ft setup] {FT_DOCS} docs x {FT_WORDS} zipf(1.3) words over "
+        f"{FT_VOCAB} (bench_ft1m, seed {FT_SEED}; BASELINE config #4's shape, "
+        f"its corpus not in the repository): data {t_data:.1f} s (host), "
+        f"build {t_build:.2f} s, {holder.num_postings} postings, "
+        f"{len(holder.words)} words; device mirrors {mib:.1f} MiB (cap "
+        f"{mirrors['cap']}, postings padded to {mirrors['post_doc'].shape[0]}"
+        f") uploaded in {t_up:.2f} s; dense head {len(dd.wid2slot)} words, "
+        f"{dense_mib:.1f} MiB, built in {t_dense:.2f} s; commit-time warm "
+        f"{warmed} words in {t_warm:.2f} s; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"on {card}")
+    return sel, rng
+
+
+def phase_ft_cases(card: str, sel, rng) -> None:
+    """bench_ft1m's four cases at the fitted routes: 8 single-term queries,
+    32 rare 2-term queries, 4 frequent 2-term queries, one process_batch of
+    the 36; each answer held against the host merge's, with host ms, device
+    ms and idle share and the routes taken."""
+    counters = ft_counters()
+    singles = [f"w{i}" for i in range(8)]
+    rare = [f"w{rng.integers(5_000, 50_000)} w{rng.integers(5_000, 50_000)}"
+            for _ in range(32)]
+    freq = [f"w{rng.integers(0, 5)} w{rng.integers(5, 20)}"
+            for _ in range(4)]
+    mixed = rare + freq
+    want = dict(zip(singles + mixed, ft_host_answers(sel, singles + mixed)))
+    cases = (("single-term x8", singles, False),
+             ("rare 2-term x32", rare, False),
+             ("frequent 2-term x4", freq, False),
+             ("process_batch(36)", mixed, True))
+    for tag, qs, batch in cases:
+        if batch:
+            def run():
+                return sel.process_batch(qs)
+        else:
+            def run():
+                return [sel.process(q) for q in qs]
+        run()                                   # warm shapes and caches
+        for c in counters.values():
+            c.reset()
+        got = run()
+        routes = counts_str(counters)
+        if counters["native_fallbacks"].value:
+            raise AssertionError(f"ft {tag}: {routes}")
+        diff = max(ft_agree(want[q], g, f"ft {tag} {q!r}")
+                   for q, g in zip(qs, got))
+        ms = median_ms(run, 3) / len(qs)
+        log(f"[ft cases] {tag}: host {ms:.3f} ms a query (host clock), "
+            f"{ft_device(run)}; routes: {routes}; answers equal the host "
+            f"merge's (largest rank difference {diff:.3g}, limit "
+            f"{FT_RANK_ATOL}); {card}")
+
+
+def phase_ft_check_routes(card: str, sel, dev) -> None:
+    """Every device route against the host merge on the same queries, and
+    the overflow fallback counted."""
+    from reindexer_tpu_torch.ft.config import FtFastConfig
+    from reindexer_tpu_torch.ft.dataholder import FtDataHolder
+    from reindexer_tpu_torch.ft.selector import FtSelector
+    counters = ft_counters()
+    qs = ["w0 w1", "w0 w7", "w3 w12", "w20 w40", "+w1 +w9", "w2 -w5",
+          "w4 w6 w8", '"w0 w1"']
+    want = ft_host_answers(sel, qs)
+    for route, batch, counter in (("sorted", False, "sorted_scores"),
+                                  ("sorted", True, "sorted_scores"),
+                                  ("dense", False, "dense_scores"),
+                                  ("dense", True, "dense_scores")):
+        for c in counters.values():
+            c.reset()
+        with ft_route(route):
+            got = (sel.process_batch(qs) if batch
+                   else [sel.process(q) for q in qs])
+        tag = f"{route}{' batch' if batch else ''}"
+        diff = max(ft_agree(w, g, f"ft route {tag} {q!r}")
+                   for q, w, g in zip(qs, want, got))
+        if counters[counter].value != len(qs):
+            raise AssertionError(f"ft route {tag} did not answer all "
+                                 f"{len(qs)}: {counts_str(counters)}")
+        log(f"[ft check] {tag}: {len(qs)} queries equal the host merge's "
+            f"(ids, near-ties at the cut as sets; largest rank difference "
+            f"{diff:.3g}, limit {FT_RANK_ATOL}); {counts_str(counters)}")
+    # every candidate tied and merge_limit 8: the prune cannot certify the
+    # cut, the query re-runs on the host, counted
+    cfg = FtFastConfig()
+    cfg.merge_limit = 8
+    h = FtDataHolder(cfg, ["text"], dev)
+    h.build([(i, ["w0 w1 w0"]) for i in range(4096)], 4096)
+    tied = FtSelector(h, cfg)
+    for c in counters.values():
+        c.reset()
+    with ft_route("dense"):
+        from reindexer_tpu_torch.ft import device_dense as dd
+        saved, dd.DENSE_MIN_COUNT = dd.DENSE_MIN_COUNT, 1
+        try:
+            ids = tied.process("w0 w1").ids.tolist()
+        finally:
+            dd.DENSE_MIN_COUNT = saved
+    if ids != list(range(8)) or counters["dense_overflows"].value != 1:
+        raise AssertionError(f"ft overflow: {ids}, {counts_str(counters)}")
+    log(f"[ft check] overflow: 4,096 tied docs, merge_limit 8: the dense "
+        f"prune flagged the query, the host merge answered docs 0-7; "
+        f"{counts_str(counters)}")
+
+
+def phase_ft_routes(card: str, sel) -> list:
+    """The `[ft routes]` table: 2-term queries of two words of about equal
+    frequency, their gathers G from ~2^14 to ~2^21 postings; per row the
+    host merge, the device sorted path and the dense route at batch 1, 8
+    and 36 (ms a query, host clock), and the host's heap and dense merges.
+    Returns the rows (a table of tests/test_torch_ft.py ROUTE_TABLES)."""
+    from reindexer_tpu_torch.ft.dsl import parse_ft_dsl
+    counters = ft_counters()
+    h = sel.holder
+    counts = np.diff(h.word_start)
+    order = np.argsort(-counts, kind="stable")
+    rows = []
+    log(f"[ft routes] G, host ms, sorted ms, dense ms at batch "
+        f"{'/'.join(map(str, FT_ROUTE_BATCHES))} (a query's share), host "
+        f"heap ms, host dense ms (None: the route does not take it); "
+        f"{card}")
+    for k in FT_ROUTE_LOG2:
+        i = int(np.argmin(np.abs(counts[order] - (1 << (k - 1)))))
+        i = min(i, len(order) - 2)
+        q = f"{h.word_of(int(order[i]))} {h.word_of(int(order[i + 1]))}"
+        G = sel._prepare(parse_ft_dsl(q))["G"]
+        row = [G]
+        for route in ("host", "sorted"):
+            with ft_route(route):
+                row.append(median_ms(lambda: sel.process(q)))
+        dense, notes = [], []
+        with ft_route("dense"):
+            for b in FT_ROUTE_BATCHES:
+                for c in counters.values():
+                    c.reset()
+                if b == 1:
+                    ms = median_ms(lambda: sel.process(q), 3)
+                else:
+                    ms = median_ms(lambda: sel.process_batch([q] * b), 3) / b
+                took = counters["dense_scores"].value
+                ovf = counters["dense_overflows"].value
+                dense.append(ms if took and not ovf else None)
+                if ovf or not took:
+                    notes.append(f"b{b}: {'overflow' if ovf else 'not resident'}")
+        row += dense
+        for route in ("runs", "hostdense"):
+            applies = route == "runs" or G >= h.total_docs // 4
+            with ft_route(route):
+                row.append(median_ms(lambda: sel.process(q), 3)
+                           if applies else None)
+        with ft_route("sorted"):
+            prof = f"sorted {ft_device(lambda: sel.process(q))}"
+        if dense[0] is not None:
+            with ft_route("dense"):
+                prof += f"; dense {ft_device(lambda: sel.process(q))}"
+        rows.append(tuple(round(x, 4) if isinstance(x, float) else x
+                          for x in row))
+        log(f"[ft routes] {q!r}: {rows[-1]}; {prof}"
+            f"{'; ' + ', '.join(notes) if notes else ''}")
+    log(f"[ft routes] ROUTE_TABLE = {rows}")
+    return rows
+
+
+def phase_ft(card: str, dev) -> None:
+    sel, rng = phase_ft_setup(card, dev)
+    phase_ft_cases(card, sel, rng)
+    phase_ft_check_routes(card, sel, dev)
+    phase_ft_routes(card, sel)
+    del sel
+    torch.cuda.empty_cache()
+
+
+def hybrid_db(dev):
+    """bench_hybrid's namespace: 100,000 docs, grp, a text index over 8
+    zipf(1.3) words of 5,000, a 128-dim L2 vec_bf field; seed 13."""
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     IndexType, Reindexer, VectorMetric)
+    rng = np.random.default_rng(HYB_SEED)
+    db = Reindexer(device=dev)
+    db.open_namespace("h", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        IndexDef("grp", "hash", "int"),
+        IndexDef("ft", "text", "string", json_paths=("title",)),
+        IndexDef("vec", IndexType.VEC_BF, vector_opts=FloatVectorOpts(
+            dims=HYB_D, metric=VectorMetric.L2))])
+    vocab = [f"w{i}" for i in range(5000)]
+    zipf = np.minimum(rng.zipf(1.3, size=(HYB_DOCS, 8)) - 1, len(vocab) - 1)
+    base = rng.normal(size=(HYB_DOCS, HYB_D)).astype(np.float32)
+    rows = base.tolist()
+    tx = db.new_transaction("h")
+    for i in range(HYB_DOCS):
+        tx.upsert({"id": i, "grp": i % 10,
+                   "title": " ".join(vocab[j] for j in zipf[i]),
+                   "vec": rows[i]})
+    tx.commit()
+    return db, rng.normal(size=(HYB_D,)).astype(np.float32)
+
+
+def phase_hybrid(card: str, dev) -> dict:
+    """BASELINE config #5 as bench_hybrid builds it, on the card and on the
+    CPU: the RRF query and a linear rerank, the full-text public API on the
+    same namespace. Returns K1's and K2's launches over the card's run."""
+    from reindexer_tpu_torch import BruteForceSearchParams, Query
+    from reindexer_tpu_torch.ops import scan, select
+    t0 = time.perf_counter()
+    gpu, qv = hybrid_db(dev)
+    cpu, _ = hybrid_db(torch.device("cpu"))
+    t_setup = time.perf_counter() - t0
+
+    def hyb(sort):
+        return (Query("h").where("grp", "<", 5).match("ft", "w3 w7")
+                .where_knn("vec", qv, BruteForceSearchParams(k=100))
+                .sort(sort, desc=True).limit(FT_TOP))
+
+    def answer(db, q):
+        res = db.select(q)
+        return [d["id"] for d in res.docs()], np.asarray(res.ranks())
+
+    sorts = {"RRF": "RRF()", "linear": "10 * rank(ft) + 2 * rank(vec, 50.0)"}
+    t0 = time.perf_counter()
+    gpu.select(hyb(sorts["RRF"]))           # commits: the FT build, the flush
+    t_first = time.perf_counter() - t0
+    counters = (scan.launches, select.launches)
+    for c in counters:
+        c.reset()
+    got = {tag: answer(gpu, hyb(s)) for tag, s in sorts.items()}
+    launches = {"bf_scan": scan.launches.value,
+                "bf_select": select.launches.value}
+    for tag, s in sorts.items():
+        ids, ranks = answer(cpu, hyb(s))
+        if not ids or got[tag][0] != ids or not np.allclose(
+                got[tag][1], ranks, rtol=1e-5, atol=0):
+            raise AssertionError(f"hybrid {tag}: the card's {got[tag]} "
+                                 f"differs from the CPU's {(ids, ranks)}")
+    if not all(launches.values()):
+        raise AssertionError(f"the hybrid path did not launch K1 and K2: "
+                             f"{launches}")
+    log(f"[hybrid] {HYB_DOCS} docs x {HYB_D} L2 + text (bench_hybrid, seed "
+        f"{HYB_SEED}, BASELINE config #5): set-up of the card's and the CPU's "
+        f"namespaces {t_setup:.1f} s, first select (FT build, flush) "
+        f"{t_first:.2f} s; grp < 5, match 'w3 w7', KNN k=100, top {FT_TOP}: "
+        f"RRF and linear rerank equal the port on the CPU (ids; ranks rtol "
+        f"1e-5); K1 {launches['bf_scan']}, K2 {launches['bf_select']} "
+        f"launches over the two selects")
+    for tag, s in sorts.items():
+        q = hyb(s)
+        log(f"[hybrid] {tag}: host {median_ms(lambda: gpu.select(q), 7):.3f} "
+            f"ms a select (host clock), {ft_device(lambda: gpu.select(q), 5)}"
+            f" on {card}")
+    phase_ft_api(gpu)
+    return launches
+
+
+def phase_ft_api(db) -> None:
+    """The full-text public API on the hybrid namespace: Query.match, SQL,
+    ft_batch and highlight / snippet give the selector's answer."""
+    from reindexer_tpu_torch import Query
+    idx = db.get_namespace("h").get_index("ft")
+    qs = ["w3 w7", "+w1 -w2", "w10* w20", '"w0 w1"']
+    for dsl in qs:
+        want = idx._selector.process(dsl)
+        res = db.select(Query("h").match("ft", dsl).limit(FT_TOP))
+        ids = [d["id"] for d in res.docs()]
+        if ids != want.ids[:FT_TOP].tolist() or not np.allclose(
+                res.ranks(), want.ranks[:FT_TOP], rtol=0, atol=1e-4):
+            raise AssertionError(f"ft api match {dsl!r}: {ids}")
+        sql = db.select(f"SELECT * FROM h WHERE ft = '{dsl}' LIMIT {FT_TOP}")
+        if [d["id"] for d in sql.docs()] != ids:
+            raise AssertionError(f"ft api SQL {dsl!r} differs from match")
+    batch = db.ft_batch("h", "ft", qs)
+    for dsl, res in zip(qs, batch):
+        if [d["id"] for d in res.docs()][:FT_TOP] != \
+                idx._selector.process(dsl).ids[:FT_TOP].tolist():
+            raise AssertionError(f"ft api ft_batch {dsl!r} differs")
+    hl = db.select(Query("h").match("ft", "w3").limit(5).functions(
+        "title = highlight(<b>,</b>)"))
+    sn = db.select(Query("h").match("ft", "w7").limit(5).functions(
+        "title = snippet(<b>,</b>,2,2)"))
+    if not all("<b>w3</b>" in d["title"] for d in hl.docs()) or not all(
+            "<b>w7</b>" in d["title"] for d in sn.docs()):
+        raise AssertionError("ft api highlight / snippet")
+    stored = db.select(Query("h").where("id", "=", hl.docs()[0]["id"]))
+    if "<b>" in stored.docs()[0]["title"]:
+        raise AssertionError("ft api: highlight changed the stored document")
+    log(f"[ft api] Query.match, SQL WHERE ft = '...', ft_batch of {len(qs)} "
+        "and highlight / snippet give the selector's answers; the stored "
+        "documents stay as they were")
+
+
+
 def main() -> int:
     global HNSW_N
     if not torch.cuda.is_available():
@@ -2038,6 +2500,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["ivf_seg_scan"] += phase_ivf_api(card, dev)
     phase_hnsw(card, dev)
+    phase_ft(card, dev)
+    for name, n in phase_hybrid(card, dev).items():
+        launches[name] += n
     loaded = [m for m in ("jax", "reindexer_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"{' and '.join(loaded)} got imported")

@@ -17,8 +17,10 @@ Ported so far: the brute-force (`vec_bf`) vector index, fp32 and SQ8
 (modes exact, approx, approx_rerank), the IVF (`ivf`) index, with six
 hand-written CUDA kernels, the HNSW (`hnsw`) index, fp32 and SQ8, with
 streaming KNN (plain PyTorch: its JAX device code has no Pallas kernel),
-array vector indexes over any of the three, and every host-only index type.
-Full text, storage and meshes raise NotImplementedError (see ROADMAP.md).
+array vector indexes over any of the three, every host-only index type,
+and full text (`text`: ft_fast BM25, plain PyTorch on the device and the
+host C++ merge) with hybrid FT+KNN fusion. Storage and meshes raise
+NotImplementedError (see ROADMAP.md).
 """
 from .core.database import Reindexer
 from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,

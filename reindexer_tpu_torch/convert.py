@@ -108,3 +108,25 @@ def hnsw_state_from_reference(state: dict) -> dict:
     return {"keeper": keeper, "levels": levels, "deleted": deleted,
             "links0": links0, "upper": upper, "host_vecs": host_vecs,
             "entry": entry, "max_level": max_level}
+
+
+def ft_state_from_reference(state: dict) -> dict:
+    """The port's full-text state from a reindexer_tpu
+    `FullTextIndex.state_dict()`: {"docs": {row: [text per field]},
+    "rows_capacity": int}. Both packages keep only the documents' text and
+    rebuild the posting arrays from it, so this checks the rows and the
+    texts (None becomes "") and copies. Load the result with
+    `FullTextIndex.load_state_dict`."""
+    cap = int(state.get("rows_capacity", 0))
+    docs = {}
+    for row, texts in state.get("docs", {}).items():
+        row = int(row)
+        if not 0 <= row < cap:
+            raise ParamsError(f"full-text row {row} is outside rows_capacity "
+                              f"{cap}")
+        if not isinstance(texts, (list, tuple)) or not all(
+                t is None or isinstance(t, str) for t in texts):
+            raise ParamsError(f"full-text row {row} must hold a list of "
+                              f"texts, got {texts!r}")
+        docs[row] = ["" if t is None else t for t in texts]
+    return {"docs": docs, "rows_capacity": cap}

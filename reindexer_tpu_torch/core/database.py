@@ -4,10 +4,10 @@ reindexer_tpu/core/database.py).
 The port's copy of the reference's facade, with its vector indexes on an
 explicit torch device: `Reindexer(device="cuda")` on the GPU,
 `Reindexer(device="cpu")` for the kernels' plain PyTorch versions. The
-vector engines (vec_bf, hnsw, ivf, array fields over each) build and search
-on that device. Persistent storage, device meshes, full text and the HTTP
-embedder are not ported yet: they raise NotImplementedError naming their
-ROADMAP item.
+vector engines (vec_bf, hnsw, ivf, array fields over each) and the
+full-text engine (text) build and search on that device. Persistent
+storage, device meshes and the HTTP embedder are not ported yet: they raise
+NotImplementedError naming their ROADMAP item.
 
 The reference's notes follow.
 
@@ -416,10 +416,46 @@ class Reindexer:
         device program (ft/selector.process_batch) — the FT counterpart of
         knn_batch."""
         ns = self.get_namespace(ns_name)
-        ns.get_index(field)
-        # no index of the port is full-text (ROADMAP A9): the reference's
-        # answer for a field that is not one
-        raise QueryError(f"'{field}' is not a full-text index")
+        index = ns.get_index(field)
+        from ..index.text import FullTextIndex
+        if not isinstance(index, FullTextIndex):
+            raise QueryError(f"'{field}' is not a full-text index")
+        with ns.lock:
+            index.commit()
+            if index._steps or index._owner:
+                # incremental delta present: the merging single-query path
+                # handles overridden-row masking; batch per query
+                from ..core.type_consts import CondType
+                from ..ft.selector import FtSelectResult
+                results = []
+                for dsl in dsls:
+                    r = index.select_key(CondType.EQ, (dsl,))
+                    results.append(FtSelectResult(
+                        r.ids, r.ranks, (r.aux or {}).get("matched_words",
+                                                          set())))
+            else:
+                from ..ft.selector import FtSelector
+                if index._selector is None:
+                    index._selector = FtSelector(index.holder, index.cfg)
+                # the committed holder is an immutable snapshot (rebuilds
+                # replace the object) — release the namespace lock while
+                # the batch scores so concurrent requests overlap device
+                # dispatches and host merges (see Namespace.unlocked)
+                sel = index._selector
+                with ns.unlocked():
+                    results = sel.process_batch(list(dsls))
+            out = []
+            for res in results:
+                items = []
+                for rid, rank in zip(res.ids, res.ranks):
+                    doc = ns.get_item(int(rid))
+                    if doc is None:
+                        continue
+                    items.append(ResultItem(doc=doc, row_id=int(rid),
+                                            rank=float(rank),
+                                            ns_name=ns_name))
+                out.append(QueryResults(ns_name=ns_name, items=items))
+            return out
 
     def update_query(self, q: Union[Query, str]) -> QueryResults:
         if isinstance(q, str):

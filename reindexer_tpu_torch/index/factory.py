@@ -4,8 +4,8 @@ switch, cpp_src/core/index/index.cc:80-115).
 Scalar, composite and rtree indexes are the port's copies of the host-only
 reference indexes. `vec_bf`, `hnsw` and `ivf` build the port's brute-force,
 HNSW and IVF engines on the namespace's torch device, each wrapped in an
-`ArrayVectorIndex` when the definition is an array. Full text is not ported
-yet and raises NotImplementedError.
+`ArrayVectorIndex` when the definition is an array, and `text` the port's
+full-text index, its posting arrays on the same device.
 """
 from __future__ import annotations
 
@@ -18,21 +18,11 @@ from .base import Index
 from .scalar import (CompositeIndex, HashIndex, StoreIndex, TreeIndex,
                      TtlIndex, UuidIndex)
 
-_NOT_PORTED = {    # index type -> (what, its ROADMAP item)
-    IndexType.TEXT: ("full-text", "A9"),
-}
-
-
 def create_index(idef: IndexDef, device: torch.device) -> Index:
     # a composite index of any type is the host-only CompositeIndex, as in
-    # the reference's _create, whatever engine its type would otherwise need
+    # the reference's _create
     if idef.is_composite:
         return CompositeIndex(idef, ordered=idef.index_type == IndexType.TREE)
-    if idef.index_type in _NOT_PORTED:
-        what, item = _NOT_PORTED[idef.index_type]
-        raise NotImplementedError(
-            f"{what} indexes are not yet ported to reindexer_tpu_torch, see "
-            f"ROADMAP {item}")
     if idef.index_type == IndexType.HASH:
         if idef.field_type == FieldType.UUID:
             # dedicated 128-bit-key UUID index (uuid_index.cc)
@@ -49,6 +39,9 @@ def create_index(idef: IndexDef, device: torch.device) -> Index:
     if idef.index_type == IndexType.RTREE:
         from .rtree import RTreeIndex
         return RTreeIndex(idef)
+    if idef.index_type == IndexType.TEXT:
+        from .text import FullTextIndex
+        return FullTextIndex(idef, device)
     if idef.index_type in (IndexType.VEC_BF, IndexType.HNSW, IndexType.IVF):
         if idef.index_type == IndexType.VEC_BF:
             from .vector.brute_force import BruteForceIndex

@@ -1,11 +1,10 @@
 """Query executor (port of reindexer_tpu/query/executor.py).
 
 The port's copy of the reference's host-side executor, streaming KNN
-included (reindexer_tpu_torch/index/vector/streaming.py). The seams that
-reach a layer the port lacks stop here: WAL queries raise
-NotImplementedError (replication, ROADMAP A13), and the
-full-text select functions (highlight, snippet) have no full-text match to
-render, so they leave the documents as the reference does in that case.
+included (reindexer_tpu_torch/index/vector/streaming.py), and full
+text with its select functions (highlight, snippet: reindexer_tpu_torch/ft/).
+The seam that reaches a layer the port lacks stops here: WAL queries raise
+NotImplementedError (replication, ROADMAP A13).
 
 The reference's notes follow.
 
@@ -28,7 +27,6 @@ sorting/reranker.h) inside the sort-expression evaluator.
 from __future__ import annotations
 
 import json
-import re
 import time
 from typing import Any, Optional
 
@@ -65,9 +63,6 @@ _NUM_JOIN_OPS = {CondType.EQ: np.equal, CondType.LT: np.less,
 
 _SCALAR_NATIVE: Any = None
 _SCALAR_NATIVE_TRIED = False
-# the form of a select function, `field = fn(args)` (ft/functions.py)
-_SELECT_FN_RE = re.compile(
-    r"^\s*(?P<field>[\w.]+)\s*=\s*(?P<fn>\w+)\s*\((?P<args>.*)\)\s*$", re.S)
 
 
 def _scalar_native():
@@ -1665,13 +1660,16 @@ class Selecter:
     def _apply_select_functions(self, ns: Namespace, q: Query,
                                 items: list[ResultItem],
                                 sources: dict[str, RankSource]) -> None:
-        # the reference's ft.functions.apply_select_function: a malformed
-        # function raises; a well-formed one renders the words a full-text
-        # condition matched, and without a full-text index (the port has
-        # none yet, ROADMAP A9) nothing matched, so the documents stay
+        import copy
+        from ..ft.functions import apply_select_function
+        # select functions rewrite result docs in place — detach them from
+        # the namespace's stored documents first, or a highlight() would
+        # permanently corrupt storage (reference renders into the result
+        # payload, never the item store)
+        for it in items:
+            it.doc = copy.deepcopy(it.doc)
         for fn in q.select_functions:
-            if not _SELECT_FN_RE.match(fn):
-                raise QueryError(f"bad select function: '{fn}'")
+            apply_select_function(ns, fn, items, sources)
 
     # ==================================================================
     # UPDATE / DELETE queries (reference: ReindexerImpl::Update/Delete(Query))

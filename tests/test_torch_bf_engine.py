@@ -299,18 +299,22 @@ def test_dims_mismatch_raises():
                                                 min_elements=8))),
 ], ids=["hnsw", "ivf", "text", "array", "sq8"])
 def test_not_ported_indexes_raise(idef):
-    """Full text is the one index type not ported yet: it raises naming its
-    ROADMAP item and leaves the namespace unchanged. HNSW (fp32 and its SQ8
-    graph) and array vector indexes are ported since slice 7: each builds on
-    the CPU and answers a KNN select with the nearest document first
-    (tests/test_torch_hnsw.py holds them against the reference)."""
+    """Every index type of the reference is ported now, full text
+    included: HNSW (fp32 and its SQ8 graph) and array vector indexes build
+    on the CPU and answer a KNN select with the nearest document first
+    (tests/test_torch_hnsw.py holds them against the reference); a `text`
+    index added to a live namespace answers a full-text match
+    (tests/test_torch_ft.py holds it against the reference)."""
     db = port.Reindexer(device="cpu")
-    ns = db.open_namespace("x", [IndexDef("id", "hash", "int",
-                                          opts=IndexOpts(is_pk=True))])
+    db.open_namespace("x", [IndexDef("id", "hash", "int",
+                                     opts=IndexOpts(is_pk=True))])
     if idef.index_type == IndexType.TEXT:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            db.add_index("x", idef)
-        assert idef.name not in ns.payload_type  # namespace left unchanged
+        db.add_index("x", idef)
+        for i, text in enumerate(["red fox", "lazy dog", "red dog"]):
+            db.upsert("x", {"id": i, "t": text})
+        res = db.select(Query("x").match("t", "dog"))
+        assert sorted(d["id"] for d in res.docs()) == [1, 2]
+        assert res.ranks()[0] == pytest.approx(255.0)
         return
     db.add_index("x", idef)
     base = np.random.default_rng(3).normal(size=(40, 4)).astype(np.float32)

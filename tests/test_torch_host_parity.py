@@ -259,7 +259,8 @@ def test_composite_hnsw_definition_and_plain_unported_types():
     names (IndexDef makes it so in both packages): without dims both raise
     the same ParamsError; with dims both packages build their HNSW engine
     from it, as from a plain hnsw definition (ported in slice 7). A plain
-    `text` index raises naming A9."""
+    `text` index builds the full-text index of each package, and
+    both answer the same match."""
     errors = []
     for pkg in (ref, port):
         with pytest.raises(pkg.ParamsError) as info:
@@ -285,9 +286,21 @@ def test_composite_hnsw_definition_and_plain_unported_types():
     pk = port.IndexDef("id", "hash", "int", opts=port.IndexOpts(is_pk=True))
     port.Reindexer(device="cpu").open_namespace(
         "n", [pk, port.IndexDef("v", "hnsw", **opts)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        port.Reindexer(device="cpu").open_namespace(
-            "n", [pk, port.IndexDef("t", "text", "string")])
+    from reindexer_tpu.index.text import FullTextIndex as RefText
+    from reindexer_tpu_torch.index.text import FullTextIndex
+    got = []
+    for pkg, cls in ((ref, RefText), (port, FullTextIndex)):
+        db = pkg.Reindexer(**({"device": "cpu"} if pkg is port else {}))
+        db.open_namespace("n", [
+            pkg.IndexDef("id", "hash", "int", opts=pkg.IndexOpts(is_pk=True)),
+            pkg.IndexDef("t", "text", "string")])
+        assert isinstance(db.get_namespace("n").get_index("t"), cls)
+        for i, text in enumerate(["red fox", "lazy dog", "red dog"]):
+            db.upsert("n", {"id": i, "t": text})
+        res = db.select(pkg.Query("n").match("t", "red dog"))
+        got.append(([d["id"] for d in res.docs()], res.ranks()))
+    assert got[0][0] == got[1][0] and got[0][0]
+    np.testing.assert_allclose(got[1][1], got[0][1], rtol=1e-6)
 
 
 def test_native_lanes_are_named_by_what_they_are_built_from(tmp_path):

@@ -10,9 +10,8 @@ namespace,
 a vec_bf namespace, an SQ8 vec_bf namespace (all three modes), an IVF
 namespace (select, knn_batch, a radius-only select) and an HNSW namespace
 (select, knn_batch, a streaming query, an SQ8 HNSW field and an array
-field) on the CPU, checks that full text, not ported yet, raises
-NotImplementedError, and that no JAX module got loaded, nor the JAX
-package. The static check reads every `*.py` of
+field) on the CPU, a full-text `match` select on a `text` index, and
+checks that no JAX module got loaded, nor the JAX package. The static check reads every `*.py` of
 the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
 reindexer_tpu` naming the JAX package.
 """
@@ -140,12 +139,11 @@ res = db.select(Query("hnsw").where("grp", "=", 1).where_knn(
 odd = [i for i in np.argsort(d2).tolist() if i % 2 == 1][:5]
 assert [d["id"] for d in res.docs()] == odd, (res.docs(), odd)
 
-try:
-    db.add_index("items", IndexDef("body", "text", "string"))
-except NotImplementedError:
-    pass
-else:
-    raise AssertionError("text did not raise")
+db.add_index("items", IndexDef("body", "text", "string"))
+for i, text in enumerate(["red fox", "lazy dog", "red dog", "blue fox"]):
+    db.upsert("items", {"id": 100 + i, "name": f"t{i}", "body": text})
+res = db.select(Query("items").match("body", "red fox"))
+assert [d["id"] for d in res.docs()][:2] == [100, 102], res.docs()
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"))
