@@ -64,9 +64,9 @@ Phases, in order; any failure raises, so the exit code is not 0:
      sweep forced and the router's choice. Ids equal a float64 oracle over
      the rows of the query's probed lists (near-ties aside), from the stored
      vectors; recall@100 against the full float64 oracle may not fall as
-     nprobe grows. Then both stage-2 routes are timed at batch 1 to 256 at
-     each nprobe, with device time and idle share (the router table,
-     PERF.md);
+     nprobe grows. Then both stage-2 routes are timed at batch 1, 16, 64
+     and 256 at each nprobe, with device time and idle share (the router
+     table, PERF.md);
   9. the IVF public API: a 100,000 x 128 cosine IVF namespace with 1,024
      lists filled by db.upsert, 1,000 deletes; 64 db.select, knn_batch of
      16 at nprobe 8 and 128, one SQL KNN(..., nprobe=8), the
@@ -84,8 +84,8 @@ Phases, in order; any failure raises, so the exit code is not 0:
  11. the card's graph loaded into a CPU index (the plain path): 16 queries
      at ef 64 give the same ids (near-ties aside), ranks within rtol 1e-4
      and the same beam steps on both;
- 12. the HNSW main path: 64 queries, k=10, ef 32 to 512, select_batch and
-     64 selects against a float64 oracle (ranks exact within rtol 1e-4,
+ 12. the HNSW main path: 64 queries, k=10, ef 32, 128 and 512, select_batch
+     and 64 selects against a float64 oracle (ranks exact within rtol 1e-4,
      recall@10 >= 0.95 at ef 128, falling by no more than 0.005 as ef
      grows); per ef the host ms, device ms, idle share, beam steps, host
      syncs and device launches per search (the beam loop is plain
@@ -124,6 +124,28 @@ Phases, in order; any failure raises, so the exit code is not 0:
      the kernel line's), with host ms, device ms and idle share; then the
      full-text public API on that namespace (Query.match, SQL, ft_batch,
      highlight / snippet);
+ 17. [persist], restart: hybrid config #5's namespace (its rows cut from
+     100,000 to 25,000) and the HNSW API one (20,000 x 96) in a FileStorage
+     database, the IVF API one (cut to 25,000 rows, 1,024 lists, 1,000
+     deletes) in a sqlite:// database, every write through db.upsert;
+     a flush; 1,000 upserts of existing rows, 500 deletes and 500 new rows
+     a namespace in the WAL alone; the databases dropped without close()
+     (a crash) and reopened with the ANN cache: every vec_bf KNN, match,
+     hybrid, scalar and IVF answer equals the live database's (ties as
+     sets, ranks rtol 1e-5), the HNSW links loaded equal the saved ones
+     and its answers after the WAL reach the API's recall gate; K1, K2 and
+     K6 must launch; the time to recover per namespace (parse and upsert,
+     cache load, WAL replay, first query), bytes on disk, device memory;
+ 18. [server], the daemon path over that storage root: ReindexerServer +
+     RpcServer in process (the manager rediscovers both databases with
+     RX_TPU_DISABLE_ANN_CACHE=1: [persist]'s restart without the cache,
+     held and timed as the one with it), HTTP DSL KNN, SQL and match and
+     RPC KNN equal to the embedded answers, 8 RPC threads x 32 vec_bf
+     selects equal to the serial answers (qps, host ms p50 / p99, device
+     ms, idle share; K1 and K2 must launch), HNSW selects beside vec_bf
+     selects; then python -m reindexer_tpu_torch.server (started at the
+     crash) answers one HTTP KNN request and exits 0 on SIGTERM; the
+     storage root is a tempfile.mkdtemp(), removed at the end;
 then one JSON line for the kernels (with each one's bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100's peak for their
 type) and, last, the result line.
@@ -133,12 +155,19 @@ imports neither JAX nor the JAX package, and fails if either was loaded.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -168,7 +197,8 @@ IVF_NPROBES = (8, 16, 32, 64, 128)
 IVF_API_DOCS, IVF_API_D = 100_000, 128
 IVF_RANK_ATOL = 1e-5              # cosine similarities of unit vectors
 IVF_ROUTES = {"segments": "1", "sweep": "0", "router": None}
-IVF_ROUTE_BATCHES = (1, 16, 32, 64, 128, 256)   # the router table, PERF.md
+# the router table (PERF.md); batches 32 and 128 cut for the script's time
+IVF_ROUTE_BATCHES = (1, 16, 64, 256)
 K6_ULPS = 8       # K6 vs its plain version: fp32 ulps of sum |q_d b_d|;
 #                   a bf16 or TF32 rounding of an operand is ~1e3x more
 K6_POINTS = ((1, 8), (IVF_BATCH, 128), (256, 128))   # (batch, nprobe)
@@ -1628,7 +1658,7 @@ def phase_ivf_api(card: str, dev) -> int:
 HNSW_N, HNSW_D, HNSW_M, HNSW_EFC = 200_000, 96, 16, 200  # bench.py hnsw200k
 HNSW_CENTERS, HNSW_SIGMA, HNSW_SEED = 4096, 0.35, 11     # bench_deep1m data
 HNSW_Q, HNSW_K = 64, 10
-HNSW_EFS = (32, 64, 128, 256, 512)
+HNSW_EFS = (32, 128, 512)     # 64 and 256 cut for the script's time
 HNSW_MIN_RECALL, HNSW_RECALL_EF = 0.95, 128   # recall@10 floor at ef 128
 HNSW_RECALL_DROP = 0.005   # recall@10 may fall this much as ef grows, no more
 HNSW_SQ8_MIN_RECALL = 0.9
@@ -2473,6 +2503,630 @@ def phase_ft_api(db) -> None:
 
 
 
+# --- persistence and the server plane (ROADMAP A11, A13) ------------------
+
+# the persisted namespaces keep their configs' widths; hybrid config #5's
+# and the IVF API one are cut from 100,000 rows each to fit the script's
+# time (PERF.md §4: restarting them at full size took 464 s of the phases)
+PERSIST_HYB_DOCS, PERSIST_IVF_DOCS = 25_000, 25_000
+PERSIST_UPDATES, PERSIST_DELETES, PERSIST_NEW = 1_000, 500, 500
+PERSIST_Q, PERSIST_K = 16, 100
+PERSIST_RTOL, PERSIST_ATOL = 1e-5, 1e-6     # fp32 rounding, as the tests
+SERVER_THREADS, SERVER_SELECTS = 8, 32
+SERVER_TIMEOUT_S = 300
+
+
+def kernel_counters() -> dict:
+    from reindexer_tpu_torch.ops import ivf_kernels, scan, select
+    return {"bf_scan": scan.launches, "bf_select": select.launches,
+            "ivf_seg_scan": ivf_kernels.seg_scan_launches}
+
+
+class PersistRows:
+    """One namespace's rows as the database should hold them: vectors by
+    id (ids 0..n-1 plus the new ones) and an alive mask."""
+
+    def __init__(self, vecs: np.ndarray, extra):
+        self.vecs = vecs
+        self.alive = np.ones(len(vecs), dtype=bool)
+        self.extra = extra          # id -> the document's other fields
+
+    def doc(self, i: int) -> dict:
+        return {"id": i, **self.extra(i), "vec": self.vecs[i].tolist()}
+
+
+def persist_sets():
+    """The three namespaces: hybrid config #5's (bench_hybrid's rows, seed
+    13, cut to PERSIST_HYB_DOCS), the HNSW API one (bench_hnsw's size) and
+    the IVF API one (bench_ivf's API rows cut to PERSIST_IVF_DOCS, 1,024
+    lists, 1,000 deletes)."""
+    rng = np.random.default_rng(HYB_SEED)
+    vocab = [f"w{i}" for i in range(5000)]
+    zipf = np.minimum(rng.zipf(1.3, size=(PERSIST_HYB_DOCS, 8)) - 1,
+                      len(vocab) - 1)
+    titles = [" ".join(vocab[j] for j in row) for row in zipf]
+    hyb = PersistRows(rng.normal(size=(PERSIST_HYB_DOCS, HYB_D)).astype(
+        np.float32),
+                      lambda i: {"grp": i % 10, "title": titles[i]})
+    hyb.titles, hyb.vocab = titles, vocab
+    rng = np.random.default_rng(1)
+    hn = PersistRows(rng.normal(size=(HNSW_API_N, HNSW_API_D)).astype(
+        np.float32), lambda i: {"grp": i % 3})
+    base, _ = make_ivf_data(PERSIST_IVF_DOCS, IVF_API_D, 1)
+    ivf = PersistRows(base, lambda i: {})
+    return {"h": hyb, "hnsw": hn, "ivf": ivf}
+
+
+def persist_defs(name: str):
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     IndexType, VectorMetric)
+    pk = IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True))
+    if name == "h":
+        return [pk, IndexDef("grp", "hash", "int"),
+                IndexDef("ft", "text", "string", json_paths=("title",)),
+                IndexDef("vec", IndexType.VEC_BF, vector_opts=FloatVectorOpts(
+                    dims=HYB_D, metric=VectorMetric.L2))]
+    if name == "hnsw":
+        return [pk, IndexDef("grp", "hash", "int"),
+                hnsw_def("vec", HNSW_API_D, HNSW_API_EFC)]
+    return [pk, IndexDef("vec", "ivf", vector_opts=FloatVectorOpts(
+        dims=IVF_API_D, metric=VectorMetric.COSINE,
+        centroids_count=IVF_NLIST))]
+
+
+def persist_after_flush(db, name: str, rows: PersistRows, rng) -> None:
+    """PERSIST_UPDATES upserts of existing rows (new vectors; new titles on
+    the hybrid namespace), PERSIST_DELETES deletes, PERSIST_NEW new rows;
+    all after the flush, so they live in the WAL alone."""
+    alive = np.flatnonzero(rows.alive)
+    pick = rng.choice(alive, size=PERSIST_UPDATES + PERSIST_DELETES,
+                      replace=False)
+    upd, dele = pick[:PERSIST_UPDATES], pick[PERSIST_UPDATES:]
+    n0, d = len(rows.vecs), rows.vecs.shape[1]
+    rows.vecs = np.concatenate([rows.vecs, rng.normal(
+        size=(PERSIST_NEW, d)).astype(np.float32)])
+    rows.alive = np.concatenate([rows.alive, np.ones(PERSIST_NEW, bool)])
+    if name == "h":
+        extra = rows.extra
+        new_titles = {int(i): " ".join(rng.choice(rows.vocab[:50], size=8))
+                      for i in upd.tolist() + list(range(n0, n0 + PERSIST_NEW))}
+        rows.extra = lambda i: ({"grp": i % 10, "title": new_titles[i]}
+                                if i in new_titles else extra(i))
+    rows.vecs[upd] = rng.normal(size=(len(upd), d)).astype(np.float32)
+    for i in upd.tolist() + list(range(n0, n0 + PERSIST_NEW)):
+        db.upsert(name, rows.doc(i))
+    for i in dele.tolist():
+        db.delete(name, {"id": i})
+    rows.alive[dele] = False
+
+
+def persist_queries(rows: dict, rng) -> dict:
+    return {name: rng.normal(size=(PERSIST_Q, r.vecs.shape[1])).astype(
+        np.float32) for name, r in rows.items()}
+
+
+def persist_answers(fdb, sdb, qs: dict) -> dict:
+    """{tag: [(ids, ranks)]}: 16 vec_bf KNN, a match, the hybrid RRF query
+    and a scalar query on the hybrid namespace; 16 HNSW KNN and a scalar
+    query on the HNSW one; 16 IVF KNN at nprobe 8 and at nprobe 1,024
+    (all lists)."""
+    from reindexer_tpu_torch import (BruteForceSearchParams,
+                                     HnswSearchParams, IvfSearchParams,
+                                     KnnSearchParams, Query)
+
+    def pair(res):
+        return [d["id"] for d in res.docs()], np.asarray(res.ranks(), float)
+
+    return {
+        "h knn": [pair(fdb.select(Query("h").where_knn(
+            "vec", q, KnnSearchParams(k=PERSIST_K)))) for q in qs["h"]],
+        "h match": [pair(fdb.select(Query("h").match("ft", "w3 w7")
+                                    .limit(FT_TOP)))],
+        "h hybrid": [pair(fdb.select(
+            Query("h").where("grp", "<", 5).match("ft", "w3 w7")
+            .where_knn("vec", qs["h"][0], BruteForceSearchParams(k=100))
+            .sort("RRF()", desc=True).limit(FT_TOP)))],
+        "h scalar": [pair(fdb.select(Query("h").where("grp", "=", 3)
+                                     .sort("id").limit(100)))],
+        "hnsw knn": [pair(fdb.select(Query("hnsw").where_knn(
+            "vec", q, HnswSearchParams(k=HNSW_K, ef=HNSW_API_EF))))
+            for q in qs["hnsw"]],
+        "hnsw scalar": [pair(fdb.select(Query("hnsw").where("grp", "=", 1)
+                                        .sort("id").limit(100)))],
+        "ivf knn": [pair(sdb.select(Query("ivf").where_knn(
+            "vec", q, IvfSearchParams(k=PERSIST_K, nprobe=8))))
+            for q in qs["ivf"]],
+        "ivf knn all lists": [pair(sdb.select(Query("ivf").where_knn(
+            "vec", q, IvfSearchParams(k=PERSIST_K, nprobe=IVF_NLIST))))
+            for q in qs["ivf"]]}
+
+
+def same_answer(want, got, tag: str) -> None:
+    """ids equal up to permutations of tied ranks and near-ties at the
+    k-th rank; ranks within PERSIST_RTOL; a query without ranks (scalar)
+    gives the same ids in the same order."""
+    (ids_w, r_w), (ids_g, r_g) = want, got
+    if len(ids_w) != len(ids_g) or not np.allclose(
+            r_g, r_w, rtol=PERSIST_RTOL, atol=PERSIST_ATOL, equal_nan=True):
+        raise AssertionError(f"{tag}: {ids_g[:8]} {r_g[:8]} against "
+                             f"{ids_w[:8]} {r_w[:8]}")
+    if np.isnan(r_w).all():
+        if ids_g != ids_w:
+            raise AssertionError(f"{tag}: {ids_g[:8]} against {ids_w[:8]}")
+        return
+    rank_w, rank_g = dict(zip(ids_w, r_w)), dict(zip(ids_g, r_g))
+    edge = r_w[-1] if len(r_w) else 0.0
+    for i in set(ids_w) ^ set(ids_g):
+        r = rank_w.get(i, rank_g.get(i))
+        if abs(r - edge) > PERSIST_RTOL * abs(edge) + PERSIST_ATOL:
+            raise AssertionError(f"{tag}: id {i} (rank {r}) is in one answer "
+                                 f"only and not tied at the k-th {edge}")
+    for i in set(ids_w) & set(ids_g):
+        if abs(rank_w[i] - rank_g[i]) > PERSIST_RTOL * abs(rank_w[i]) \
+                + PERSIST_ATOL:
+            raise AssertionError(f"{tag}: id {i} ranks {rank_g[i]} against "
+                                 f"{rank_w[i]}")
+
+
+def same_answers(want: dict, got: dict, tags, why: str) -> None:
+    for tag in tags:
+        for j, (w, g) in enumerate(zip(want[tag], got[tag], strict=True)):
+            same_answer(w, g, f"[persist] {why}: {tag}[{j}]")
+
+
+def hnsw_recall(rows: PersistRows, qs, answers, dev) -> float:
+    """recall@10 of the HNSW answers against the float64 oracle over the
+    live rows; ranks the exact inner products, no deleted row."""
+    s64, top = hnsw_oracle(rows.vecs, qs, dev, rows.alive)
+    return check_hnsw(answers, s64, top, "[persist] hnsw")
+
+
+@contextlib.contextmanager
+def ann_load_spy():
+    """Keeps each HNSW index's layer-0 links as loaded from the ANN cache
+    (before the WAL replays over them): {(namespace, index): links0}."""
+    from reindexer_tpu_torch.storage import ann_cache
+    orig, seen = ann_cache.AnnStorageCache.load, {}
+
+    def load(self, ns_name, index, items_count):
+        ok = orig(self, ns_name, index, items_count)
+        if ok and hasattr(index, "_links0"):
+            seen[(ns_name, index.name)] = index._links0.copy()
+        return ok
+    ann_cache.AnnStorageCache.load = load
+    try:
+        yield seen
+    finally:
+        ann_cache.AnnStorageCache.load = orig
+
+
+def disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def restart_answers(fdb, sdb, qs: dict, opens: str):
+    """The answers of two reopened databases and the time to recover: ({
+    namespace: time split}, the answers, a note of the opens and the other
+    answers). The split: the open's parse and upsert, cache load (upload)
+    and WAL replay (the storage's load report), then the namespace's first
+    query apart from the answers that follow (on the hybrid namespace also
+    its first match, the full-text rebuild)."""
+    from reindexer_tpu_torch import (HnswSearchParams, IvfSearchParams,
+                                     KnnSearchParams, Query)
+    firsts = {"h": lambda: fdb.select(Query("h").where_knn(
+        "vec", qs["h"][0], KnnSearchParams(k=PERSIST_K))),
+        "h match": lambda: fdb.select(Query("h").match("ft", "w3 w7")),
+        "hnsw": lambda: fdb.select(Query("hnsw").where_knn(
+            "vec", qs["hnsw"][0], HnswSearchParams(k=HNSW_K,
+                                                   ef=HNSW_API_EF))),
+        "ivf": lambda: sdb.select(Query("ivf").where_knn(
+            "vec", qs["ivf"][0], IvfSearchParams(k=PERSIST_K, nprobe=8)))}
+    first = {}
+    for tag, fn in firsts.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers = persist_answers(fdb, sdb, qs)
+    t_rest = time.perf_counter() - t0
+    split = {ns: {**{k: rep[k] for k in ("snapshot_s", "ann_cache_s",
+                                         "wal_s", "ann_applied")},
+                  "first_query_s": first[ns]}
+             for db in (fdb, sdb)
+             for ns, rep in db.storage.load_report.items()}
+    split["h"]["first_match_s"] = first["h match"]
+    return split, answers, f"{opens}; the other answers {t_rest:.2f} s"
+
+
+def split_str(split: dict) -> str:
+    parts = []
+    for ns, s in split.items():
+        rec = (s["snapshot_s"] + s["ann_cache_s"] + s["wal_s"]
+               + s["first_query_s"])
+        parts.append(
+            f"{ns}: {rec:.2f} s = parse + upsert {s['snapshot_s']:.2f}, "
+            f"cache load {s['ann_cache_s']:.3f} (applied "
+            f"{s['ann_applied'] or 'none'}), WAL replay {s['wal_s']:.2f}, "
+            f"first query {s['first_query_s']:.3f}"
+            + (f", first match (FT rebuild) {s['first_match_s']:.2f}"
+               if "first_match_s" in s else ""))
+    return "; ".join(parts)
+
+
+def phase_persist(card: str, dev, root: str, daemon: "Daemon"):
+    """[persist]: restart at full size, storage under `root`, with the ANN
+    cache (the restart without it is the [server] manager's); `daemon`
+    starts at the crash, to load beside the restarts. Returns (the live
+    answers, the restarted ones, the query vectors, the rows, K1/K2/K6
+    launches of the restarted run)."""
+    from reindexer_tpu_torch import Reindexer
+    rng = np.random.default_rng(SEED + 9)
+    rows = persist_sets()
+    n_fill = sum(len(r.vecs) for r in rows.values())
+    fdsn = os.path.join(root, "fdb")
+    sdsn = "sqlite://" + os.path.join(root, "sdb")
+    t0 = time.perf_counter()
+    fdb = Reindexer(fdsn, device=dev)
+    sdb = Reindexer(sdsn, device=dev)
+    for name, db in (("h", fdb), ("hnsw", fdb), ("ivf", sdb)):
+        db.open_namespace(name, persist_defs(name))
+        r = rows[name]
+        for i in range(len(r.vecs)):
+            db.upsert(name, r.doc(i))
+    for i in np.random.default_rng(SEED + 4).choice(
+            PERSIST_IVF_DOCS, size=DELETES, replace=False).tolist():
+        sdb.delete("ivf", {"id": i})
+        rows["ivf"].alive[i] = False
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fdb.flush()                  # builds the HNSW graph, writes its cache
+    sdb.flush()                  # trains the IVF lists, writes their cache
+    t_flush = time.perf_counter() - t0
+    saved_links = fdb.get_namespace("hnsw").get_index("vec").state_dict()[
+        "links0"]
+    for name, db in (("h", fdb), ("hnsw", fdb), ("ivf", sdb)):
+        persist_after_flush(db, name, rows[name], rng)
+    qs = persist_queries(rows, rng)
+    live = persist_answers(fdb, sdb, qs)
+    live_recall = hnsw_recall(rows["hnsw"], qs["hnsw"], live["hnsw knn"], dev)
+    disk = {"fdb": disk_bytes(fdsn), "sdb": disk_bytes(sdsn[9:])}
+    log(f"[persist] set-up: {n_fill} db.upserts in {t_fill:.1f} s (hybrid "
+        f"config #5 cut to {PERSIST_HYB_DOCS} x {HYB_D} L2 + text and HNSW "
+        f"{HNSW_API_N} x {HNSW_API_D} IP efC {HNSW_API_EFC} in a FileStorage"
+        f" database, IVF {PERSIST_IVF_DOCS} x "
+        f"{IVF_API_D} cosine {IVF_NLIST} lists - {DELETES} deletes in a "
+        f"sqlite one), flush {t_flush:.1f} s; then per namespace "
+        f"{PERSIST_UPDATES} upserts of existing rows, {PERSIST_DELETES} "
+        f"deletes, {PERSIST_NEW} new rows in the WAL alone; on disk "
+        f"{disk['fdb']} B (FileStorage) + {disk['sdb']} B (sqlite)")
+    del fdb, sdb                 # a crash: no close(), no flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    daemon.start()
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    with ann_load_spy() as loaded:
+        t0 = time.perf_counter()
+        fdb = Reindexer(fdsn, device=dev)
+        t_f = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sdb = Reindexer(sdsn, device=dev)
+        t_s = time.perf_counter() - t0
+    split, got, rest = restart_answers(
+        fdb, sdb, qs, f"Reindexer(dsn) {t_f:.2f} s (FileStorage), {t_s:.2f}"
+        " s (sqlite)")
+    torch.cuda.synchronize()
+    launches = {n: c.value for n, c in counters.items()}
+    mem = torch.cuda.memory_allocated()
+    exact = [t for t in live if not t.startswith("hnsw knn")]
+    same_answers(live, got, exact, "with the ANN cache")
+    if not np.array_equal(loaded.get(("hnsw", "vec")), saved_links):
+        raise AssertionError("[persist] the HNSW links loaded from the ANN "
+                             "cache differ from the saved ones")
+    recall = hnsw_recall(rows["hnsw"], qs["hnsw"], got["hnsw knn"], dev)
+    overlap = np.mean([len(set(a[0]) & set(b[0])) / HNSW_K for a, b in zip(
+        live["hnsw knn"], got["hnsw knn"])])
+    if recall < HNSW_API_MIN_RECALL:
+        raise AssertionError(f"[persist] hnsw recall@{HNSW_K} {recall:.4f}")
+    if not all(split[ns]["ann_applied"] == ["vec"] for ns in split):
+        raise AssertionError(f"[persist] an ANN cache was not applied: "
+                             f"{split}")
+    if not all(launches.values()):
+        raise AssertionError(f"[persist] the restarted path did not launch "
+                             f"K1, K2 and K6: {launches}")
+    log(f"[persist] restart with the ANN cache on {card}: {split_str(split)}"
+        f"; {rest}; device memory after the reload {mem} B")
+    log(f"[persist] with the ANN cache: every vec_bf KNN (16 x k={PERSIST_K}"
+        f"), match, hybrid RRF, scalar and IVF KNN (nprobe 8 and all lists) "
+        f"equals the live database's (ids, ties as sets; ranks rtol "
+        f"{PERSIST_RTOL}); the HNSW links loaded equal the saved ones row for "
+        f"row, its answers after the WAL recall@{HNSW_K} {recall:.4f} "
+        f"(live {live_recall:.4f}; overlap with the live answers "
+        f"{overlap:.4f}); launches " +
+        ", ".join(f"{n} {v}" for n, v in launches.items()))
+    del fdb, sdb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return live, got, qs, rows, launches
+
+
+def http_json(port_no: int, method: str, path: str, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port_no}{path}",
+                                 data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVER_TIMEOUT_S) as resp:
+        return json.loads(resp.read().decode())
+
+
+def phase_server(card: str, dev, root: str, live: dict, restarted: dict,
+                 qs: dict, rows: dict, daemon) -> dict:
+    """[server]: the daemon path over the [persist] storage root. The
+    in-process manager rediscovers the databases with
+    RX_TPU_DISABLE_ANN_CACHE=1: that is [persist]'s restart without the
+    cache, held as the one with it was. The daemon, which loads with the
+    cache, must answer as [persist]'s restart with it did (`restarted`).
+    Returns K1's and K2's launches over the concurrent RPC run."""
+    from reindexer_tpu_torch import (HnswSearchParams, IvfSearchParams,
+                                     KnnSearchParams, Query)
+    from reindexer_tpu_torch.net.rpc_client import RpcReindexer
+    from reindexer_tpu_torch.net.rpc_server import RpcServer
+    from reindexer_tpu_torch.query.dsl import to_dsl
+    from reindexer_tpu_torch.server.http import ReindexerServer
+    os.environ["RX_TPU_DISABLE_ANN_CACHE"] = "1"
+    t0 = time.perf_counter()
+    try:
+        httpd = ReindexerServer(port=0, storage_root=root, device=dev)
+    finally:
+        del os.environ["RX_TPU_DISABLE_ANN_CACHE"]
+    rpcd = RpcServer(mgr=httpd.mgr, port=0)
+    httpd.start()
+    rpcd.start()
+    t_start = time.perf_counter() - t0
+    try:
+        if httpd.mgr.names() != ["fdb", "sdb"]:
+            raise AssertionError(f"[server] the manager found "
+                                 f"{httpd.mgr.names()}")
+        fdb, sdb = httpd.mgr.get("fdb"), httpd.mgr.get("sdb")
+        if type(sdb.storage).__name__ != "SqliteStorage":
+            raise AssertionError("[server] sdb did not reopen as sqlite://")
+        split, got, rest = restart_answers(
+            fdb, sdb, qs, f"ReindexerServer(storage_root) {t_start:.2f} s")
+        mem = torch.cuda.memory_allocated()
+        same_answers(live, got, [t for t in live if t not in (
+            "hnsw knn", "ivf knn")], "without the ANN cache")
+        recall = hnsw_recall(rows["hnsw"], qs["hnsw"], got["hnsw knn"], dev)
+        if recall < HNSW_API_MIN_RECALL:
+            raise AssertionError(f"[persist] rebuilt hnsw recall@{HNSW_K} "
+                                 f"{recall:.4f}")
+        log(f"[persist] restart with RX_TPU_DISABLE_ANN_CACHE=1 (the server's"
+            f" manager) on {card}: {split_str(split)}; {rest} (the IVF lists "
+            f"retrain at the first query); device memory {mem} B; exact "
+            f"answers as the live database's (IVF over all lists), rebuilt "
+            f"HNSW recall@{HNSW_K} {recall:.4f}")
+        knn = {"h": Query("h").where_knn("vec", qs["h"][0], KnnSearchParams(
+            k=PERSIST_K)),
+            "hnsw": Query("hnsw").where_knn("vec", qs["hnsw"][0],
+                                            HnswSearchParams(
+                                                k=HNSW_K, ef=HNSW_API_EF)),
+            "ivf": Query("ivf").where_knn("vec", qs["ivf"][0],
+                                          IvfSearchParams(k=PERSIST_K,
+                                                          nprobe=8))}
+        dbname = {"h": "fdb", "hnsw": "fdb", "ivf": "sdb"}
+        sqls = {"h": ["SELECT * FROM h WHERE grp = 3 ORDER BY id LIMIT 100",
+                      f"SELECT * FROM h WHERE ft = 'w3 w7' LIMIT {FT_TOP}"]}
+        # HTTP: DSL KNN on every namespace, SQL scalar and match
+        for ns, q in knn.items():
+            got = http_json(httpd.port, "POST",
+                            f"/api/v1/db/{dbname[ns]}/query", to_dsl(q))
+            want = httpd.mgr.get(dbname[ns]).select(q).docs()
+            if got["items"] != json.loads(json.dumps(want)):
+                raise AssertionError(f"[server] HTTP DSL KNN on {ns}")
+        for sql in sqls["h"]:
+            got = http_json(httpd.port, "GET", "/api/v1/db/fdb/query?q="
+                            + urllib.parse.quote(sql))
+            if got["items"] != json.loads(json.dumps(fdb.select(sql).docs())):
+                raise AssertionError(f"[server] HTTP {sql}")
+        # RPC: the same KNN selects, ids and ranks
+        for ns, q in knn.items():
+            c = RpcReindexer("127.0.0.1", rpcd.port, dbname[ns])
+            try:
+                got = c.select(q)
+            finally:
+                c.close()
+            want = httpd.mgr.get(dbname[ns]).select(q)
+            if [d["id"] for d in got.docs()] != [d["id"] for d in
+                                                  want.docs()] or not \
+                    np.allclose(got.ranks(), want.ranks(), rtol=PERSIST_RTOL,
+                                atol=0):
+                raise AssertionError(f"[server] RPC KNN on {ns}")
+        res = fdb.select(knn["h"])
+        same_answer(live["h knn"][0], ([d["id"] for d in res.docs()],
+                                       np.asarray(res.ranks())),
+                    "[server] the rediscovered database against the live one")
+        daemon_checks = [("GET", "/api/v1/db", None,
+                          {"items": ["fdb", "sdb"], "total_items": 2})] + [
+            ("POST", f"/api/v1/db/{dbname[ns]}/query", to_dsl(q),
+             restarted[f"{ns} knn"][0][0]) for ns, q in knn.items()]
+        daemon.stop(daemon_checks)
+        # 8 RPC client threads x 32 vec_bf selects
+        sq = np.random.default_rng(SEED + 11).normal(
+            size=(SERVER_SELECTS, HYB_D)).astype(np.float32)
+        sel = [Query("h").where_knn("vec", v, KnnSearchParams(k=PERSIST_K))
+               for v in sq]
+        serial = [[d["id"] for d in fdb.select(q).docs()] for q in sel]
+        counters = kernel_counters()
+        for c in counters.values():
+            c.reset()
+        lat, wall = rpc_threads(rpcd.port, [sel] * SERVER_THREADS,
+                                [serial] * SERVER_THREADS, "vec_bf")
+        torch.cuda.synchronize()
+        launches = {n: counters[n].value for n in ("bf_scan", "bf_select")}
+        if not all(launches.values()):
+            raise AssertionError(f"[server] the RPC selects did not launch K1 "
+                                 f"and K2: {launches}")
+        n_req = SERVER_THREADS * SERVER_SELECTS
+        p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+        per, wall_ms = profile_device(lambda: rpc_threads(
+            rpcd.port, [sel] * SERVER_THREADS, [serial] * SERVER_THREADS,
+            "vec_bf"), 1, host=True)
+        busy = sum(per.values())
+        # HNSW selects (their beam loops capture and replay CUDA graphs)
+        # beside vec_bf selects (K1 + K2), half the threads each
+        hq = [Query("hnsw").where_knn("vec", v, HnswSearchParams(
+            k=HNSW_K, ef=HNSW_API_EF)) for v in qs["hnsw"]]
+        hserial = [[d["id"] for d in fdb.select(q).docs()] for q in hq]
+        half = SERVER_THREADS // 2
+        _, mixed_wall = rpc_threads(
+            rpcd.port, [hq] * half + [sel] * half,
+            [hserial] * half + [serial] * half, "mixed HNSW + vec_bf")
+        log(f"[server] ReindexerServer + RpcServer over the storage root on "
+            f"{card}: started (both databases rediscovered and reopened "
+            f"without the cache) in {t_start:.2f} s; HTTP DSL KNN (h, hnsw, ivf), SQL and match, "
+            f"RPC KNN equal the embedded answers; {SERVER_THREADS} RPC "
+            f"threads x {SERVER_SELECTS} vec_bf selects (k={PERSIST_K}) equal "
+            f"the serial answers: {n_req / wall:.1f} qps, host ms a request "
+            f"p50 {p50:.3f} p99 {p99:.3f}; under torch.profiler device "
+            f"{busy / n_req:.4f} ms a request, idle share "
+            f"{1.0 - busy / wall_ms:.4f}; launches K1 {launches['bf_scan']},"
+            f" K2 {launches['bf_select']}; {half} threads x {len(hq)} HNSW "
+            f"selects beside {half} x {len(sel)} vec_bf selects equal the "
+            f"serial answers ({mixed_wall:.2f} s)")
+    finally:
+        # stopped without closing the databases: their storage stays as the
+        # daemon read it, and the daemon's exit flushes it
+        rpcd.stop()
+        httpd.httpd.shutdown()
+        httpd.httpd.server_close()
+        httpd._thread.join(timeout=SERVER_TIMEOUT_S)
+        del httpd, rpcd
+        gc.collect()
+        torch.cuda.empty_cache()
+    daemon.join(card, len(daemon_checks))
+    return launches
+
+
+def rpc_threads(port_no: int, per_thread: list, want: list, tag: str):
+    """One RpcReindexer a thread, each running its list of queries on the
+    database `fdb`; every answer's ids must equal `want`'s. Returns (the
+    host seconds of each request, the wall seconds of the run)."""
+    from reindexer_tpu_torch.net.rpc_client import RpcReindexer
+    clients = [RpcReindexer("127.0.0.1", port_no, "fdb", conns=1)
+               for _ in per_thread]
+    lat, errors, wrong = [], [], []
+
+    def worker(t):
+        try:
+            for i, q in enumerate(per_thread[t]):
+                t1 = time.perf_counter()
+                ids = [d["id"] for d in clients[t].select(q).docs()]
+                lat.append(time.perf_counter() - t1)
+                if ids != want[t][i]:
+                    wrong.append((t, i))
+        except Exception as e:       # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(len(per_thread))]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVER_TIMEOUT_S)
+    finally:
+        for cl in clients:
+            cl.close()
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads) or errors or wrong:
+        raise AssertionError(f"[server] {tag} RPC threads: errors {errors}, "
+                             f"answers other than the serial ones at "
+                             f"(thread, query) {wrong[:8]}")
+    return lat, wall
+
+
+class Daemon:
+    """python -m reindexer_tpu_torch.server over a storage root on `dev`:
+    `start` launches it, `finish` sends one HTTP KNN request and SIGTERM
+    and requires exit code 0, `kill` ends it whatever its state."""
+
+    def __init__(self, dev, root: str):
+        self.dev, self.root, self.proc = dev, root, None
+
+    def start(self) -> None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (here, os.environ.get("PYTHONPATH")) if p))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "reindexer_tpu_torch.server",
+             "--http-port", "0", "--rpc-port", "0", "--storage", self.root,
+             "--device", str(self.dev)],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.watchdog = threading.Timer(SERVER_TIMEOUT_S, self.proc.kill)
+        self.watchdog.daemon = True
+        self.watchdog.start()
+
+    def kill(self) -> None:
+        if self.proc is None or self.proc.stdout.closed:
+            return
+        self.watchdog.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.proc.stdout.close()
+        self.proc.stderr.close()
+
+    def stop(self, checks: list) -> None:
+        """Wait for the daemon's start line, then send each check (method,
+        path, body, the ids or the JSON it must answer) over HTTP, then
+        SIGTERM: its exit flushes both databases while the caller goes
+        on."""
+        try:
+            line = self.proc.stdout.readline()
+            if f"device={self.dev}" not in line:
+                raise AssertionError(f"[server] the daemon said {line!r}: "
+                                     f"{self.proc.stderr.read()[-2000:]}")
+            self.t_up = time.perf_counter() - self.t0
+            http_port = int(line.split("http://127.0.0.1:")[1].split()[0])
+            t0 = time.perf_counter()
+            for method, path, body, want in checks:
+                got = http_json(http_port, method, path, body)
+                if got.get("items") and isinstance(got["items"][0], dict):
+                    got = [d["id"] for d in got["items"]]
+                if got != want:
+                    raise AssertionError(f"[server] the daemon answered "
+                                         f"{str(got)[:200]} to {path}")
+            self.t_req = time.perf_counter() - t0
+            self.t_term = time.perf_counter()
+            self.proc.send_signal(signal.SIGTERM)
+        except BaseException:
+            self.kill()
+            raise
+
+    def join(self, card: str, n_checks: int) -> None:
+        try:
+            rc = self.proc.wait(timeout=SERVER_TIMEOUT_S)
+            t_term = time.perf_counter() - self.t_term
+        finally:
+            self.kill()
+        if rc != 0:
+            raise AssertionError(f"[server] the daemon exited {rc}")
+        log(f"[server] python -m reindexer_tpu_torch.server --device "
+            f"{self.dev} (started at the [persist] crash, loading beside "
+            f"the restarts): up {self.t_up:.2f} s after its start; "
+            f"{n_checks} HTTP requests (the databases it found, a DSL KNN on "
+            f"each) answered as the embedded databases in "
+            f"{1e3 * self.t_req:.1f} ms; SIGTERM -> exit 0 in {t_term:.2f} s "
+            f"(its close flushes both databases, beside the RPC runs) on "
+            f"{card}")
+
+
 def main() -> int:
     global HNSW_N
     if not torch.cuda.is_available():
@@ -2484,25 +3138,55 @@ def main() -> int:
         HNSW_N = int(sys.argv[2])
         phase_hnsw_setup(torch.device("cuda", 0))
         return 0
+    marks = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        log(f"[time] {name}: {marks[-1] - marks[-2]:.1f} s (at "
+            f"{marks[-1] - marks[0]:.1f} s)")
+
     phase_build()
     dev = torch.device("cuda", 0)
     stats = phase_kernels(dev)
     launches = phase_main_path(card)
+    mark("build, K1/K2, fp32 main path")
     stats.update(phase_sq8_kernels(dev))
     sq8_launches = phase_sq8_main_path(card, dev)
     launches.update((name, sq8_launches[name])
                     for name in ("sq8_scan", "sq8_select", "sq8_i8_scan"))
+    mark("SQ8")
     ix, q = phase_ivf_setup(dev)
     stats["ivf_seg_scan"] = phase_ivf_kernel(ix, q, dev)
     launches["ivf_seg_scan"] = phase_ivf_main(card, ix, q[:IVF_BATCH])
+    mark("IVF set-up, K6, main path")
     phase_ivf_routes(card, ix, q)
     del ix
     torch.cuda.empty_cache()
+    mark("IVF routes")
     launches["ivf_seg_scan"] += phase_ivf_api(card, dev)
+    mark("IVF API")
     phase_hnsw(card, dev)
+    mark("HNSW")
     phase_ft(card, dev)
+    mark("full text")
     for name, n in phase_hybrid(card, dev).items():
         launches[name] += n
+    mark("hybrid")
+    root = tempfile.mkdtemp(prefix="rx_persist_")
+    daemon = Daemon(dev, root)
+    try:
+        live, restarted, qs, rows, persist_launches = phase_persist(
+            card, dev, root, daemon)
+        for name, n in persist_launches.items():
+            launches[name] += n
+        mark("persist")
+        for name, n in phase_server(card, dev, root, live, restarted, qs,
+                                    rows, daemon).items():
+            launches[name] += n
+        mark("server")
+    finally:
+        daemon.kill()
+        shutil.rmtree(root, ignore_errors=True)
     loaded = [m for m in ("jax", "reindexer_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"{' and '.join(loaded)} got imported")

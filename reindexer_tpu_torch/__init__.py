@@ -19,8 +19,15 @@ hand-written CUDA kernels, the HNSW (`hnsw`) index, fp32 and SQ8, with
 streaming KNN (plain PyTorch: its JAX device code has no Pallas kernel),
 array vector indexes over any of the three, every host-only index type,
 and full text (`text`: ft_fast BM25, plain PyTorch on the device and the
-host C++ merge) with hybrid FT+KNN fusion. Storage and meshes raise
-NotImplementedError (see ROADMAP.md).
+host C++ merge) with hybrid FT+KNN fusion. Persistent storage opens from a
+DSN, as in reindexer_tpu (`Reindexer("/path", device="cuda")`,
+`builtin://...`, `sqlite://...`), and reopens with the ANN cache
+re-uploaded to the device. The server plane is imported by path, as in
+reindexer_tpu: `python -m reindexer_tpu_torch.server --storage <root>
+--device cuda` (HTTP and binary RPC), `reindexer_tpu_torch.client`,
+`reindexer_tpu_torch.net.rpc_client`, `reindexer_tpu_torch.tools.cli`.
+Meshes, replication, clustering and sharding raise NotImplementedError
+(see ROADMAP.md).
 """
 from .core.database import Reindexer
 from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,

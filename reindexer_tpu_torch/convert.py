@@ -1,6 +1,10 @@
 """Carry state from the JAX package into the port."""
 from __future__ import annotations
 
+import json
+import os
+import shutil
+
 import numpy as np
 
 from .core.errors import ParamsError
@@ -130,3 +134,45 @@ def ft_state_from_reference(state: dict) -> dict:
                               f"texts, got {texts!r}")
         docs[row] = ["" if t is None else t for t in texts]
     return {"docs": docs, "rows_capacity": cap}
+
+
+def _check_ann_state(state: dict, index_type: str) -> None:
+    """Raise unless `state` converts by the *_state_from_reference function
+    of its index type (array indexes have no cache in either package)."""
+    if index_type == "hnsw":
+        hnsw_state_from_reference(state)
+    elif index_type == "ivf":
+        ivf_state_from_reference(state)
+    else:
+        keeper_state_from_reference(state["keeper"])
+
+
+def storage_from_reference(src_dir: str, dst_dir: str) -> dict:
+    """Copy a reindexer_tpu storage root into `dst_dir` (a new directory)
+    for the port: a database directory (the JSONL engine's, or a sqlite://
+    one's) or a server's root of them. Both packages write the same files,
+    so every file is copied as it is; then every ANN cache file is read and
+    checked by the converter of its index type, and a file that fails the
+    check is removed, as the engines drop a stale cache (the index then
+    rebuilds on its first query). Returns {"kept": [cache files], "dropped":
+    {cache file: reason}}, paths relative to `dst_dir`."""
+    from .storage.ann_cache import _unflatten
+    shutil.copytree(src_dir, dst_dir)
+    report: dict = {"kept": [], "dropped": {}}
+    for root, _, files in sorted(os.walk(dst_dir)):
+        if os.path.basename(root) != "ann_cache":
+            continue
+        for name in sorted(f for f in files if f.endswith(".npz")):
+            path = os.path.join(root, name)
+            rel = os.path.relpath(path, dst_dir)
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    meta = json.loads(bytes(z["__meta__"]).decode())
+                    stamp = meta.pop("__stamp__")
+                    _check_ann_state(_unflatten(meta, z),
+                                     stamp["index_type"])
+                report["kept"].append(rel)
+            except Exception as e:       # any unreadable state is stale
+                os.remove(path)
+                report["dropped"][rel] = f"{type(e).__name__}: {e}"
+    return report

@@ -5,9 +5,12 @@ The port's copy of the reference's facade, with its vector indexes on an
 explicit torch device: `Reindexer(device="cuda")` on the GPU,
 `Reindexer(device="cpu")` for the kernels' plain PyTorch versions. The
 vector engines (vec_bf, hnsw, ivf, array fields over each) and the
-full-text engine (text) build and search on that device. Persistent
-storage, device meshes and the HTTP embedder are not ported yet: they raise
-NotImplementedError naming their ROADMAP item.
+full-text engine (text) build and search on that device. A DSN opens
+persistent storage as in the reference (a plain path or `builtin://`: the
+JSONL engine; `sqlite://`: the sqlite engine); on reopen the snapshot's
+documents are upserted, the ANN cache re-uploads each vector index's state
+to the device, and the WAL replays on top of it. Device meshes are not
+ported yet: `mesh=` raises NotImplementedError naming ROADMAP A12.
 
 The reference's notes follow.
 
@@ -79,7 +82,7 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to "
                                f"reindexer_tpu_torch, see ROADMAP {item}")
 
@@ -89,6 +92,7 @@ class Reindexer:
 
     Usage:
         db = Reindexer(device="cuda")         # in-memory, vectors on the GPU
+        db = Reindexer("/path/to/storage")    # persistent, on the GPU
         db = Reindexer(device="cpu")          # plain PyTorch kernel versions
         db.open_namespace("items", [IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True))])
         db.upsert("items", {"id": 1, "name": "x"})
@@ -97,12 +101,10 @@ class Reindexer:
 
     def __init__(self, dsn: str = "", storage=None, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
-        """dsn / storage (persistence) and mesh (multi-device) are not
-        ported yet and raise NotImplementedError."""
+        """dsn / storage: persistence, as in the reference. mesh
+        (multi-device) is not ported yet and raises NotImplementedError."""
         if mesh is not None:
-            raise _not_ported("mesh= (multi-device)", "A12")
-        if dsn or storage is not None:
-            raise _not_ported("persistent storage", "A11")
+            raise not_ported("mesh= (multi-device)", "A12")
         self.device = resolve_device(device)
         self._namespaces: dict[str, Namespace] = {}
         self._lock = threading.RLock()
@@ -121,6 +123,12 @@ class Reindexer:
         # core/index/ttlindex.cc) — started lazily on the first TTL index
         self._ttl_stop = threading.Event()
         self._ttl_thread: Optional[threading.Thread] = None
+        self.storage = storage
+        if dsn and storage is None:
+            from ..storage.engine import open_storage
+            self.storage = open_storage(dsn)
+        if self.storage is not None:
+            self._load_from_storage()
 
     # ------------------------------------------------------------------
     # namespace lifecycle (reference: reindexer.h OpenNamespace/AddNamespace/...)
@@ -134,6 +142,8 @@ class Reindexer:
                     raise ParamsError("'#' namespace names are reserved")
                 ns = Namespace(name, self.device)
                 self._namespaces[name] = ns
+                if self.storage is not None:
+                    self.storage.attach_namespace(ns)
             for idef in indexes:
                 ns.add_index(idef)
                 if idef.opts.expire_after:
@@ -165,6 +175,8 @@ class Reindexer:
         with self._lock:
             if name not in self._namespaces:
                 raise NotFoundError(f"namespace '{name}' not found")
+            if self.storage is not None:
+                self.storage.flush_namespace(self._namespaces[name])
             del self._namespaces[name]
 
     def drop_namespace(self, name: str) -> None:
@@ -172,6 +184,8 @@ class Reindexer:
             ns = self._namespaces.pop(name, None)
             if ns is None:
                 raise NotFoundError(f"namespace '{name}' not found")
+            if self.storage is not None:
+                self.storage.drop_namespace(name)
 
     def truncate_namespace(self, name: str) -> None:
         self.get_namespace(name).truncate()
@@ -184,6 +198,8 @@ class Reindexer:
             ns.name = dst
             ns.payload_type.name = dst
             self._namespaces[dst] = ns
+            if self.storage is not None:
+                self.storage.rename_namespace(src, dst)
 
     def get_namespace(self, name: str) -> Namespace:
         if name.startswith("#"):
@@ -254,7 +270,9 @@ class Reindexer:
             if ix is not None and hasattr(ix, "rebuild_centroids"):
                 ix.rebuild_centroids()
         elif cmd == "drop_ann_storage_cache":
-            pass   # no storage (ROADMAP A11), so no ANN cache to drop
+            if self.storage is not None and hasattr(self.storage, "ann_cache"):
+                self.storage.ann_cache.drop(value.get("namespace", ""),
+                                            value.get("index"))
         elif cmd == "set_leader_node":
             # manual RAFT leadership transfer (reference: replication.md:498)
             node = getattr(self, "_cluster_node", None)
@@ -589,9 +607,9 @@ class Reindexer:
         emb = idef.vector_opts.embedding
         fn = self._embedders.get(emb.cache_tag or emb.endpoint)
         if fn is None:
-            raise _not_ported(
-                "the HTTP embedder (register an embedder with "
-                "register_embedder instead)", "A13")
+            from ..server.embedders import HttpEmbedder
+            fn = HttpEmbedder(emb.endpoint)
+            self._embedders[emb.cache_tag or emb.endpoint] = fn
         vec = self._invoke_embedder(emb.cache_tag, fn, text)
         return np.asarray(vec, dtype=np.float32)
 
@@ -716,12 +734,27 @@ class Reindexer:
         return ns
 
     # ------------------------------------------------------------------
-    # storage (not ported yet, ROADMAP A11: an in-memory database)
+    # storage
     # ------------------------------------------------------------------
+    def _load_from_storage(self) -> None:
+        for name in self.storage.namespace_names():
+            ns = Namespace(name, self.device)
+            self._namespaces[name] = ns
+            self.storage.load_namespace(ns)
+            self.storage.attach_namespace(ns)
+            if any(d.opts.expire_after for d in ns.index_defs()):
+                self._ensure_ttl_thread()
+
     def flush(self) -> None:
-        """Nothing to flush: the port's databases have no storage yet."""
+        if self.storage is None:
+            return
+        for ns in self._namespaces.values():
+            self.storage.flush_namespace(ns)
 
     def close(self) -> None:
         self._ttl_stop.set()
         if self._ttl_thread is not None:
             self._ttl_thread.join(timeout=2.0)
+        self.flush()
+        if self.storage is not None:
+            self.storage.close()

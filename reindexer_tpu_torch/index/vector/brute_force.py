@@ -87,7 +87,8 @@ class BruteForceIndex(FloatVectorIndexBase):
         if self._quant.need_requantize(self.keeper.count,
                                        self.keeper.capacity):
             self._quant.quantize(self.keeper)
-        elif self._quant.need_refresh(self.keeper.count):
+        elif self._quant.need_refresh(self.keeper.count,
+                                      self.keeper.version):
             self._quant.refresh(self.keeper)
 
     def memstat(self) -> dict:

@@ -284,7 +284,8 @@ class HnswIndex(FloatVectorIndexBase):
             if self._quant.need_requantize(self.keeper.count,
                                            self.keeper.capacity):
                 self._quant.quantize(self.keeper)
-            elif self._quant.need_refresh(self.keeper.count):
+            elif self._quant.need_refresh(self.keeper.count,
+                                          self.keeper.version):
                 self._quant.refresh(self.keeper)
             if self._quant.active:
                 return DataPack(self._quant.codes, self.keeper.sq,

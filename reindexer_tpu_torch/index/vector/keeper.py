@@ -60,6 +60,11 @@ class VectorKeeper:
         self.copy_on_write = copy_on_write
         self.valid = np.zeros((cap,), dtype=np.bool_)   # host mirror
         self.count = 0       # number of valid vectors
+        # bumped by every change of the device tables' rows (flush,
+        # bulk_load, clear, load_state_dict): the SQ8 store re-encodes when
+        # it moved, also where the count did not (an upsert of an existing
+        # row, a reload to the same count)
+        self.version = 0
         self._pending: dict[int, Optional[np.ndarray]] = {}
         self._max_row = -1
         # bulk_load into a fresh keeper rounds the rows to bf16 (IVF sets
@@ -129,6 +134,7 @@ class VectorKeeper:
         self._grow_to(self._max_row + 1)
         items = sorted(self._pending.items())
         self._pending.clear()
+        self.version += 1
         all_rows = np.fromiter((r for r, _ in items), dtype=np.int64,
                                count=len(items))
         prev_valid = int(self.valid[all_rows].sum())
@@ -157,6 +163,7 @@ class VectorKeeper:
 
     def clear(self) -> None:
         self._pending.clear()
+        self.version += 1
         self._max_row = -1
         self.count = 0
         self._fresh_tables()
@@ -177,6 +184,7 @@ class VectorKeeper:
             matrix = normalize_rows(matrix).astype(np.float32)
         n = matrix.shape[0]
         self.flush()
+        self.version += 1
         self._grow_to(start_row + n)
         end = start_row + n
         src = torch.from_numpy(matrix)

@@ -97,6 +97,7 @@ class QuantizedStore:
         self.err_dims: Optional[torch.Tensor] = None
         self.ms_dims: Optional[torch.Tensor] = None
         self._quantized_count = 0
+        self._quantized_version = -1    # the keeper's version last encoded
 
     @property
     def active(self) -> bool:
@@ -111,10 +112,14 @@ class QuantizedStore:
             return True
         return count >= 2 * max(self._quantized_count, 1)
 
-    def need_refresh(self, count: int) -> bool:
-        """Codes stale (rows added or removed since the last encode) while
-        the grid still holds: re-encode without new quantiles."""
-        return self.active and count != self._quantized_count
+    def need_refresh(self, count: int, version: Optional[int] = None) -> bool:
+        """Codes stale (rows added, removed or rewritten since the last
+        encode: the keeper's count or, when given, its version moved) while
+        the grid still holds: re-encode without new quantiles. The
+        reference tests the count alone, so an upsert of an existing row
+        keeps its stale codes there; the engines pass the version."""
+        return self.active and (count != self._quantized_count or (
+            version is not None and version != self._quantized_version))
 
     def _encode_keeper(self, keeper) -> None:
         lo, alpha = self.lo, self.alpha
@@ -123,6 +128,7 @@ class QuantizedStore:
         self.err_dims, self.ms_dims = _max_abs_err(keeper.data, valid,
                                                    self.codes, lo, alpha)
         self._quantized_count = keeper.count
+        self._quantized_version = keeper.version
 
     def refresh(self, keeper) -> None:
         """Re-encode on the existing grid, unless the data drifted outside

@@ -4,7 +4,7 @@ The port's copy of the reference's host-side executor, streaming KNN
 included (reindexer_tpu_torch/index/vector/streaming.py), and full
 text with its select functions (highlight, snippet: reindexer_tpu_torch/ft/).
 The seam that reaches a layer the port lacks stops here: WAL queries raise
-NotImplementedError (replication, ROADMAP A13).
+NotImplementedError (replication, ROADMAP A13b).
 
 The reference's notes follow.
 
@@ -163,7 +163,7 @@ class Selecter:
         if rs is None:
             raise NotImplementedError(
                 "WAL queries (replication) are not yet ported to "
-                "reindexer_tpu_torch, see ROADMAP A13")
+                "reindexer_tpu_torch, see ROADMAP A13b")
         from_lsn = int(lsn_e.values[0])
         if lsn_e.condition == CondType.GE:
             from_lsn -= 1

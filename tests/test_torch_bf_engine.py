@@ -328,8 +328,11 @@ def test_not_ported_indexes_raise(idef):
 
 
 def test_not_ported_options_and_missing_device_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="storage"):
-        port.Reindexer(str(tmp_path / "db"), device="cpu")
+    # storage is ported (tests/test_torch_storage.py): a DSN opens it
+    from reindexer_tpu_torch.storage.engine import FileStorage
+    db = port.Reindexer(str(tmp_path / "db"), device="cpu")
+    assert isinstance(db.storage, FileStorage)
+    db.close()
     with pytest.raises(NotImplementedError, match="mesh"):
         port.Reindexer(mesh=object(), device="cpu")
     with pytest.raises(RuntimeError, match="cuda:1000"):

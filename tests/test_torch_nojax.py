@@ -10,8 +10,10 @@ namespace,
 a vec_bf namespace, an SQ8 vec_bf namespace (all three modes), an IVF
 namespace (select, knn_batch, a radius-only select) and an HNSW namespace
 (select, knn_batch, a streaming query, an SQ8 HNSW field and an array
-field) on the CPU, a full-text `match` select on a `text` index, and
-checks that no JAX module got loaded, nor the JAX package. The static check reads every `*.py` of
+field) on the CPU, a full-text `match` select on a `text` index, imports
+the storage, network, server, client, events and CLI modules, reopens a
+persistent HNSW namespace from its ANN cache, and checks that no JAX module
+got loaded, nor the JAX package. The static check reads every `*.py` of
 the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
 reindexer_tpu` naming the JAX package.
 """
@@ -144,6 +146,33 @@ for i, text in enumerate(["red fox", "lazy dog", "red dog", "blue fox"]):
     db.upsert("items", {"id": 100 + i, "name": f"t{i}", "body": text})
 res = db.select(Query("items").match("body", "red fox"))
 assert [d["id"] for d in res.docs()][:2] == [100, 102], res.docs()
+
+import tempfile
+import reindexer_tpu_torch.client
+import reindexer_tpu_torch.core.cjson
+import reindexer_tpu_torch.core.protobuf
+import reindexer_tpu_torch.events
+import reindexer_tpu_torch.net.rpc_client
+import reindexer_tpu_torch.net.rpc_server
+import reindexer_tpu_torch.query.suggest
+import reindexer_tpu_torch.server.__main__
+import reindexer_tpu_torch.server.http
+import reindexer_tpu_torch.storage.engine
+import reindexer_tpu_torch.tools.cli
+with tempfile.TemporaryDirectory() as root:
+    pdb = Reindexer(root + "/db", device="cpu")
+    pdb.open_namespace("p", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        IndexDef("v", "hnsw", vector_opts=FloatVectorOpts(
+            dims=8, metric=VectorMetric.L2, m=8))])
+    for i in range(50):
+        pdb.upsert("p", {"id": i, "v": base[i].tolist()})
+    pdb.close()
+    pdb = Reindexer(root + "/db", device="cpu")
+    assert pdb.storage.load_report["p"]["ann_applied"] == ["v"]
+    res = pdb.select(Query("p").where_knn("v", base[7],
+                                          HnswSearchParams(k=3, ef=32)))
+    assert [d["id"] for d in res.docs()] == want, res.docs()
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"))
