@@ -146,6 +146,44 @@ Phases, in order; any failure raises, so the exit code is not 0:
      selects; then python -m reindexer_tpu_torch.server (started at the
      crash) answers one HTTP KNN request and exits 0 on SIGTERM; the
      storage root is a tempfile.mkdtemp(), removed at the end;
+ 19. [replication], async leader -> follower on the card: R1 follows
+     phase 16's hybrid database (100,000 docs) over an RpcLeaderChannel
+     to an in-process RpcServer: a chunked force sync (seconds, docs/s,
+     the first KNN and match after it), then the leader's writes ([persist]'s
+     mix: 1,000 upserts of existing rows, 500 deletes, 500 new rows, a
+     put_meta; a namespace dropped, one renamed and written to) replayed
+     online by the replicator's thread, its vector rows uploaded once, at
+     the next select; 64 selects, knn_batch(64) (k=100), a match and the
+     hybrid RRF query (both text indexes rebuilt) equal the leader's, its
+     namespaces, data hashes and meta too; the lag of 200 acknowledged
+     writes until R1 returns them (p50 / p99); host ms, device ms and idle
+     share of R1's knn_batch(64). R2 follows [server]'s sqlite database (the
+     IVF namespace) over HttpLeaderChannel to [server]'s HTTP server: a
+     force sync, 400 leader writes, data hashes equal; it trains its own
+     lists, so its answers at nprobe 8 are held to the probed-set float64
+     oracle of its lists and at nprobe 1,024 to the leader's; K1, K2 and
+     K6 must launch;
+ 20. [cluster], the synchronous RAFT cluster: make_cluster(3) on the card,
+     BF config #1's rows (128-dim L2 vec_bf with a pk), 20,000 upserts
+     through the live nodes in turn (a follower proxies to the leader), the
+     leader killed at write 10,000 and a new one elected; every
+     acknowledged row read back from every live node, and from the revived
+     node after it catches up; 64 KNN selects (k=100) on every node
+     against the float64 oracle; then make_tcp_cluster(3) the same at
+     2,000 writes over sockets; election seconds, acknowledged-write
+     latency p50 / p99 and writes/s per transport, host ms, device ms and
+     idle share of a node's select; K1 and K2 must launch;
+ 21. [sharding], ShardedReindexer over 4 port databases on the card (and
+     the same 4 on the CPU), phase 16's documents sharded by grp: shard 0
+     values 0-2, shard 1 values 3-5, shard 2 the range 6-7, shard 3 the
+     default; pinned grp = 3 and distributed grp < 5 selects, 64
+     distributed KNN (k=100) and count / sum / facet equal the unsharded
+     database's; match and the hybrid RRF query (ranked per shard) equal
+     the CPU's shards; host ms, device ms and idle share of a distributed
+     select beside the single database's; then apply_sharding_config moves
+     grp 8-9 to shard 2 while a writer upserts 500 rows (rows moved,
+     seconds, every row where the new config puts it, 16 KNN equal the
+     unsharded database's); K1 and K2 must launch;
 then one JSON line for the kernels (with each one's bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100's peak for their
 type) and, last, the result line.
@@ -2411,10 +2449,12 @@ def hybrid_db(dev):
     return db, rng.normal(size=(HYB_D,)).astype(np.float32)
 
 
-def phase_hybrid(card: str, dev) -> dict:
+def phase_hybrid(card: str, dev):
     """BASELINE config #5 as bench_hybrid builds it, on the card and on the
     CPU: the RRF query and a linear rerank, the full-text public API on the
-    same namespace. Returns K1's and K2's launches over the card's run."""
+    same namespace. Returns K1's and K2's launches over the card's run, the
+    card's database (the leader of [replication], the data of [sharding])
+    and the query vector."""
     from reindexer_tpu_torch import BruteForceSearchParams, Query
     from reindexer_tpu_torch.ops import scan, select
     t0 = time.perf_counter()
@@ -2463,7 +2503,7 @@ def phase_hybrid(card: str, dev) -> dict:
             f"ms a select (host clock), {ft_device(lambda: gpu.select(q), 5)}"
             f" on {card}")
     phase_ft_api(gpu)
-    return launches
+    return launches, gpu, qv
 
 
 def phase_ft_api(db) -> None:
@@ -2605,6 +2645,11 @@ def persist_queries(rows: dict, rng) -> dict:
         np.float32) for name, r in rows.items()}
 
 
+def answer_of(res) -> tuple[list, np.ndarray]:
+    """(ids, ranks) of a select's results."""
+    return [d["id"] for d in res.docs()], np.asarray(res.ranks(), float)
+
+
 def persist_answers(fdb, sdb, qs: dict) -> dict:
     """{tag: [(ids, ranks)]}: 16 vec_bf KNN, a match, the hybrid RRF query
     and a scalar query on the hybrid namespace; 16 HNSW KNN and a scalar
@@ -2613,41 +2658,38 @@ def persist_answers(fdb, sdb, qs: dict) -> dict:
     from reindexer_tpu_torch import (BruteForceSearchParams,
                                      HnswSearchParams, IvfSearchParams,
                                      KnnSearchParams, Query)
-
-    def pair(res):
-        return [d["id"] for d in res.docs()], np.asarray(res.ranks(), float)
-
     return {
-        "h knn": [pair(fdb.select(Query("h").where_knn(
+        "h knn": [answer_of(fdb.select(Query("h").where_knn(
             "vec", q, KnnSearchParams(k=PERSIST_K)))) for q in qs["h"]],
-        "h match": [pair(fdb.select(Query("h").match("ft", "w3 w7")
-                                    .limit(FT_TOP)))],
-        "h hybrid": [pair(fdb.select(
+        "h match": [answer_of(fdb.select(Query("h").match("ft", "w3 w7")
+                                         .limit(FT_TOP)))],
+        "h hybrid": [answer_of(fdb.select(
             Query("h").where("grp", "<", 5).match("ft", "w3 w7")
             .where_knn("vec", qs["h"][0], BruteForceSearchParams(k=100))
             .sort("RRF()", desc=True).limit(FT_TOP)))],
-        "h scalar": [pair(fdb.select(Query("h").where("grp", "=", 3)
-                                     .sort("id").limit(100)))],
-        "hnsw knn": [pair(fdb.select(Query("hnsw").where_knn(
+        "h scalar": [answer_of(fdb.select(Query("h").where("grp", "=", 3)
+                                          .sort("id").limit(100)))],
+        "hnsw knn": [answer_of(fdb.select(Query("hnsw").where_knn(
             "vec", q, HnswSearchParams(k=HNSW_K, ef=HNSW_API_EF))))
             for q in qs["hnsw"]],
-        "hnsw scalar": [pair(fdb.select(Query("hnsw").where("grp", "=", 1)
-                                        .sort("id").limit(100)))],
-        "ivf knn": [pair(sdb.select(Query("ivf").where_knn(
+        "hnsw scalar": [answer_of(fdb.select(
+            Query("hnsw").where("grp", "=", 1).sort("id").limit(100)))],
+        "ivf knn": [answer_of(sdb.select(Query("ivf").where_knn(
             "vec", q, IvfSearchParams(k=PERSIST_K, nprobe=8))))
             for q in qs["ivf"]],
-        "ivf knn all lists": [pair(sdb.select(Query("ivf").where_knn(
+        "ivf knn all lists": [answer_of(sdb.select(Query("ivf").where_knn(
             "vec", q, IvfSearchParams(k=PERSIST_K, nprobe=IVF_NLIST))))
             for q in qs["ivf"]]}
 
 
-def same_answer(want, got, tag: str) -> None:
+def same_answer(want, got, tag: str, rtol: float = PERSIST_RTOL,
+                atol: float = PERSIST_ATOL) -> None:
     """ids equal up to permutations of tied ranks and near-ties at the
-    k-th rank; ranks within PERSIST_RTOL; a query without ranks (scalar)
-    gives the same ids in the same order."""
+    k-th rank; ranks within rtol / atol (PERSIST_RTOL / PERSIST_ATOL); a
+    query without ranks (scalar) gives the same ids in the same order."""
     (ids_w, r_w), (ids_g, r_g) = want, got
     if len(ids_w) != len(ids_g) or not np.allclose(
-            r_g, r_w, rtol=PERSIST_RTOL, atol=PERSIST_ATOL, equal_nan=True):
+            r_g, r_w, rtol=rtol, atol=atol, equal_nan=True):
         raise AssertionError(f"{tag}: {ids_g[:8]} {r_g[:8]} against "
                              f"{ids_w[:8]} {r_w[:8]}")
     if np.isnan(r_w).all():
@@ -2658,12 +2700,11 @@ def same_answer(want, got, tag: str) -> None:
     edge = r_w[-1] if len(r_w) else 0.0
     for i in set(ids_w) ^ set(ids_g):
         r = rank_w.get(i, rank_g.get(i))
-        if abs(r - edge) > PERSIST_RTOL * abs(edge) + PERSIST_ATOL:
+        if abs(r - edge) > rtol * abs(edge) + atol:
             raise AssertionError(f"{tag}: id {i} (rank {r}) is in one answer "
                                  f"only and not tied at the k-th {edge}")
     for i in set(ids_w) & set(ids_g):
-        if abs(rank_w[i] - rank_g[i]) > PERSIST_RTOL * abs(rank_w[i]) \
-                + PERSIST_ATOL:
+        if abs(rank_w[i] - rank_g[i]) > rtol * abs(rank_w[i]) + atol:
             raise AssertionError(f"{tag}: id {i} ranks {rank_g[i]} against "
                                  f"{rank_w[i]}")
 
@@ -2870,7 +2911,9 @@ def phase_server(card: str, dev, root: str, live: dict, restarted: dict,
     RX_TPU_DISABLE_ANN_CACHE=1: that is [persist]'s restart without the
     cache, held as the one with it was. The daemon, which loads with the
     cache, must answer as [persist]'s restart with it did (`restarted`).
-    Returns K1's and K2's launches over the concurrent RPC run."""
+    Returns K1's and K2's launches over the concurrent RPC run and the
+    servers, still running ([replication] follows the sqlite database over
+    their HTTP; `stop_servers` ends them)."""
     from reindexer_tpu_torch import (HnswSearchParams, IvfSearchParams,
                                      KnnSearchParams, Query)
     from reindexer_tpu_torch.net.rpc_client import RpcReindexer
@@ -2887,6 +2930,7 @@ def phase_server(card: str, dev, root: str, live: dict, restarted: dict,
     httpd.start()
     rpcd.start()
     t_start = time.perf_counter() - t0
+    daemon_checks = []
     try:
         if httpd.mgr.names() != ["fdb", "sdb"]:
             raise AssertionError(f"[server] the manager found "
@@ -2996,18 +3040,24 @@ def phase_server(card: str, dev, root: str, live: dict, restarted: dict,
             f" K2 {launches['bf_select']}; {half} threads x {len(hq)} HNSW "
             f"selects beside {half} x {len(sel)} vec_bf selects equal the "
             f"serial answers ({mixed_wall:.2f} s)")
-    finally:
-        # stopped without closing the databases: their storage stays as the
-        # daemon read it, and the daemon's exit flushes it
-        rpcd.stop()
-        httpd.httpd.shutdown()
-        httpd.httpd.server_close()
-        httpd._thread.join(timeout=SERVER_TIMEOUT_S)
-        del httpd, rpcd
-        gc.collect()
-        torch.cuda.empty_cache()
+    except BaseException:
+        stop_servers((httpd, rpcd))
+        raise
     daemon.join(card, len(daemon_checks))
-    return launches
+    return launches, (httpd, rpcd)
+
+
+def stop_servers(servers) -> None:
+    """Stop [server]'s HTTP and RPC servers without closing their
+    databases: their storage stays as the daemon read it, and the daemon's
+    exit flushes it."""
+    httpd, rpcd = servers
+    rpcd.stop()
+    httpd.httpd.shutdown()
+    httpd.httpd.server_close()
+    httpd._thread.join(timeout=SERVER_TIMEOUT_S)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def rpc_threads(port_no: int, per_thread: list, want: list, tag: str):
@@ -3127,6 +3177,598 @@ class Daemon:
             f"{card}")
 
 
+# --- replication, the RAFT cluster and sharding (ROADMAP A13b) -------------
+
+REPL_UPDATES, REPL_DELETES, REPL_NEW = 1_000, 500, 500    # as [persist]'s
+REPL_Q, REPL_LAG_WRITES, REPL_POLL_S = 64, 200, 0.005
+REPL_IVF_UPDATES, REPL_IVF_DELETES, REPL_IVF_NEW, REPL_IVF_Q = 200, 100, 100, 16
+CLUSTER_N, CLUSTER_TCP_N, CLUSTER_D, CLUSTER_Q = 20_000, 2_000, 128, 64
+CLUSTER_WAIT_S = 60.0        # an election takes 0.15-0.3 s; a loaded host
+SHARD_WRITES = 500
+SHARD_SEED = SEED + 31
+
+
+def hyb_queries():
+    """The hybrid namespace's queries: a KNN (k=100), the match and the
+    RRF hybrid of phase_hybrid."""
+    from reindexer_tpu_torch import (BruteForceSearchParams, KnnSearchParams,
+                                     Query)
+
+    def knn(v):
+        return Query("h").where_knn("vec", v, KnnSearchParams(k=K))
+
+    def hybrid(v):
+        return (Query("h").where("grp", "<", 5).match("ft", "w3 w7")
+                .where_knn("vec", v, BruteForceSearchParams(k=100))
+                .sort("RRF()", desc=True).limit(FT_TOP))
+    return knn, Query("h").match("ft", "w3 w7").limit(FT_TOP), hybrid
+
+
+def live_docs(db, ns: str) -> int:
+    return sum(d is not None for d in db.get_namespace(ns).items)
+
+
+def data_hashes(db) -> dict:
+    return {n: db.get_namespace(n).data_hash for n in db.namespace_names()}
+
+
+def timed(fn):
+    """(fn(), seconds) with the card drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def host_and_device(fn) -> str:
+    """Host ms (median of 7 after a warm-up), device ms and idle share of
+    fn (torch.profiler)."""
+    fn()
+    host = median_ms(fn, 7)
+    busy, idle, top = device_profile(fn)
+    return (f"host {host:.3f} ms, device {busy:.4f} ms, idle share "
+            f"{idle:.4f} ({top})")
+
+
+def leader_writes(leader, rng) -> tuple[int, list]:
+    """[persist]'s mix on the hybrid namespace (upserts of existing rows
+    with new vectors, deletes, new rows), a put_meta, and two small
+    namespaces: x1 dropped, x2 renamed to x3 and written to. Returns the
+    number of writes and the ids of the upserted rows."""
+    from reindexer_tpu_torch import IndexDef, IndexOpts, Query
+    pick = rng.choice(HYB_DOCS, size=REPL_UPDATES + REPL_DELETES,
+                      replace=False)
+    for i in pick[:REPL_UPDATES].tolist():
+        doc = dict(leader.select(Query("h").where("id", "=", i)).docs()[0])
+        doc["vec"] = rng.normal(size=HYB_D).astype(np.float32).tolist()
+        leader.upsert("h", doc)
+    for i in pick[REPL_UPDATES:].tolist():
+        leader.delete("h", {"id": i})
+    words = np.minimum(rng.zipf(1.3, size=(REPL_NEW, 8)) - 1, 4999)
+    for j in range(REPL_NEW):
+        leader.upsert("h", {
+            "id": HYB_DOCS + j, "grp": j % 10,
+            "title": " ".join(f"w{w}" for w in words[j]),
+            "vec": rng.normal(size=HYB_D).astype(np.float32).tolist()})
+    leader.put_meta("h", "replicated", "yes")
+    idx = [IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+           IndexDef("grp", "hash", "int")]
+    for name in ("x1", "x2"):
+        leader.open_namespace(name, idx)
+        for i in range(10):
+            leader.upsert(name, {"id": i, "grp": i % 3})
+    leader.drop_namespace("x1")
+    leader.rename_namespace("x2", "x3")
+    leader.upsert("x3", {"id": 99, "grp": 1})
+    return (REPL_UPDATES + REPL_DELETES + REPL_NEW + 26,
+            pick[:REPL_UPDATES].tolist())
+
+
+def replica_rpc(card: str, dev, leader, port_no: int) -> dict:
+    """R1: a port follower of the hybrid database over the binary RPC; a
+    chunked force sync, the leader's writes replayed online, its answers
+    held to the leader's, the lag of 200 acknowledged writes. Returns K1's
+    and K2's launches over the checks."""
+    from reindexer_tpu_torch import KnnSearchParams, Query, Reindexer
+    from reindexer_tpu_torch.replication import (AsyncReplicator,
+                                                 RpcLeaderChannel)
+    knn, match, hybrid = hyb_queries()
+    rng = np.random.default_rng(SEED + 21)
+    qs = rng.normal(size=(REPL_Q, HYB_D)).astype(np.float32)
+    f = Reindexer(device=dev)
+    repl = AsyncReplicator(f, RpcLeaderChannel("127.0.0.1", port_no, "hyb"),
+                           poll_interval=REPL_POLL_S)
+    try:
+        _, t_sync = timed(repl.sync_once)
+        n_sync = live_docs(f, "h")
+        if repl.force_syncs != 1 or n_sync != live_docs(leader, "h"):
+            raise AssertionError(f"[replication] R1's force sync: "
+                                 f"{repl.stats()}, {n_sync} documents")
+        _, t_knn = timed(lambda: f.select(knn(qs[0])))
+        _, t_match = timed(lambda: f.select(match))
+        state = leader._replication_state
+        n_writes, updated = leader_writes(leader, rng)
+        kp = f.get_namespace("h").get_index("vec").keeper
+        version = kp.version
+        t0 = time.perf_counter()
+        repl.start()
+        if not repl.wait_sync(state, timeout=SERVER_TIMEOUT_S):
+            raise AssertionError(f"[replication] R1 did not catch up: "
+                                 f"{repl.stats()}")
+        t_replay = time.perf_counter() - t0
+        if kp.version != version:
+            raise AssertionError("[replication] the replay uploaded rows to "
+                                 "the card before any select")
+        counters = kernel_counters()
+        for c in counters.values():
+            c.reset()
+        for qi, v in enumerate(qs):
+            same_answer(answer_of(leader.select(knn(v))),
+                        answer_of(f.select(knn(v))),
+                        f"[replication] R1 select {qi}")
+        if kp.version != version + 1:
+            raise AssertionError("[replication] the replayed rows took "
+                                 f"{kp.version - version} uploads, not one")
+        params = KnnSearchParams(k=K)
+        for qi, (w, g) in enumerate(zip(leader.knn_batch("h", "vec", qs,
+                                                          params),
+                                        f.knn_batch("h", "vec", qs,
+                                                    params))):
+            same_answer(answer_of(w), answer_of(g),
+                        f"[replication] R1 knn_batch({REPL_Q}) [{qi}]")
+        # a text index's ranks depend on its history of commits (a build,
+        # then incremental steps: ROADMAP C), and the leader's and R1's
+        # differ (one bulk load against chunks and a replay): both rebuild
+        # over their documents, which are the same
+        for db in (leader, f):
+            db.get_namespace("h").get_index("ft")._full_dirty = True
+        same_answer(answer_of(leader.select(match)),
+                    answer_of(f.select(match)), "[replication] R1 match")
+        same_answer(answer_of(leader.select(hybrid(qs[0]))),
+                    answer_of(f.select(hybrid(qs[0]))),
+                    "[replication] R1 hybrid RRF")
+        torch.cuda.synchronize()
+        launches = {n: counters[n].value for n in ("bf_scan", "bf_select")}
+        if not all(launches.values()):
+            raise AssertionError(f"[replication] R1's selects did not "
+                                 f"launch K1 and K2: {launches}")
+        if sorted(f.namespace_names()) != sorted(leader.namespace_names()) \
+                or data_hashes(f) != data_hashes(leader) \
+                or f.get_meta("h", "replicated") != "yes":
+            raise AssertionError(f"[replication] R1 {data_hashes(f)} against "
+                                 f"the leader's {data_hashes(leader)}")
+        lag = []
+        for j, i in enumerate(updated[:REPL_LAG_WRITES]):
+            doc = dict(leader.select(Query("h").select("vectors()").where(
+                "id", "=", i)).docs()[0], rev=j)
+            leader.upsert("h", doc)
+            t_ack = time.perf_counter()
+            while True:
+                got = f.select(Query("h").where("id", "=", i)).docs()
+                if got and got[0].get("rev") == j:
+                    break
+                if time.perf_counter() - t_ack > SERVER_TIMEOUT_S:
+                    raise AssertionError(f"[replication] R1 never returned "
+                                         f"the write of id {i}")
+                time.sleep(0.0002)
+            lag.append(time.perf_counter() - t_ack)
+        if not repl.wait_sync(state, timeout=SERVER_TIMEOUT_S) or \
+                data_hashes(f) != data_hashes(leader):
+            raise AssertionError("[replication] R1 diverged after the lag "
+                                 "writes")
+        p50, p99 = np.percentile(np.asarray(lag) * 1e3, [50, 99])
+        stats = repl.stats()
+    finally:
+        repl.stop()
+        repl.channel._client.close()
+    log(f"[replication] R1 (RpcLeaderChannel over an in-process RpcServer, "
+        f"hybrid config #5, {n_sync} docs) on {card}: chunked force sync "
+        f"{t_sync:.2f} s ({n_sync / t_sync:.0f} docs/s, "
+        f"{repl.force_sync_chunks} chunks); first select {1e3 * t_knn:.1f} "
+        f"ms (the upload of {n_sync} rows), first match {1e3 * t_match:.1f}"
+        f" ms (the full-text build); {n_writes} leader writes (updates, "
+        f"deletes, new rows, meta, a dropped and a renamed namespace) "
+        f"replayed online in {t_replay:.2f} s, the rows uploaded once at "
+        f"the next select; {REPL_Q} selects, knn_batch({REPL_Q}) (k={K}), "
+        f"match and hybrid RRF (both text indexes rebuilt) equal the "
+        f"leader's (ids, ties as sets; ranks rtol {PERSIST_RTOL}); "
+        f"namespaces {sorted(f.namespace_names())}, "
+        f"data hashes and meta equal; launches K1 {launches['bf_scan']}, K2 "
+        f"{launches['bf_select']}; stats {stats}")
+    log(f"[replication] R1 lag of an acknowledged write until the follower "
+        f"returns it (poll {1e3 * REPL_POLL_S:.0f} ms, {len(lag)} writes): "
+        f"p50 {p50:.2f} ms, p99 {p99:.2f} ms")
+    log(f"[replication] R1 knn_batch({REPL_Q}): " + host_and_device(
+        lambda: f.knn_batch("h", "vec", qs, params)) + f" on {card}")
+    del f
+    return launches
+
+
+def replica_http(card: str, dev, httpd, ivf_rows) -> int:
+    """R2: a port follower of [server]'s sqlite database (the IVF API
+    namespace) over HttpLeaderChannel. Its IVF lists are its own (it trains
+    them), so its answers are held to the probed-set oracle of its lists,
+    and at nprobe = all lists to the leader's. Returns K6's launches."""
+    from reindexer_tpu_torch import IvfSearchParams, Query, Reindexer
+    from reindexer_tpu_torch.replication import (AsyncReplicator,
+                                                 HttpLeaderChannel)
+    sdb = httpd.mgr.get("sdb")
+    rng = np.random.default_rng(SEED + 22)
+    f = Reindexer(device=dev)
+    repl = AsyncReplicator(f, HttpLeaderChannel(
+        f"http://127.0.0.1:{httpd.port}", "sdb"))
+    _, t_sync = timed(repl.sync_once)
+    n_sync = live_docs(f, "ivf")
+    if repl.force_syncs != 1 or n_sync != live_docs(sdb, "ivf"):
+        raise AssertionError(f"[replication] R2's force sync: "
+                             f"{repl.stats()}, {n_sync} documents")
+    alive = np.flatnonzero(ivf_rows.alive)
+    pick = rng.choice(alive, size=REPL_IVF_UPDATES + REPL_IVF_DELETES,
+                      replace=False)
+    for i in pick[:REPL_IVF_UPDATES].tolist():
+        sdb.upsert("ivf", {"id": i, "vec": rng.normal(
+            size=IVF_API_D).astype(np.float32).tolist()})
+    for i in pick[REPL_IVF_UPDATES:].tolist():
+        sdb.delete("ivf", {"id": i})
+    n0 = len(ivf_rows.vecs)
+    for j in range(REPL_IVF_NEW):
+        sdb.upsert("ivf", {"id": n0 + j, "vec": rng.normal(
+            size=IVF_API_D).astype(np.float32).tolist()})
+    _, t_replay = timed(repl.sync_once)
+    if data_hashes(f) != data_hashes(sdb) or repl.force_syncs != 1:
+        raise AssertionError(f"[replication] R2 {data_hashes(f)} against "
+                             f"{data_hashes(sdb)}, {repl.stats()}")
+    qs = rng.normal(size=(REPL_IVF_Q, IVF_API_D)).astype(np.float32)
+
+    def knn(v, nprobe):
+        return Query("ivf").where_knn("vec", v, IvfSearchParams(
+            k=K, nprobe=nprobe))
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    _, t_first = timed(lambda: f.select(knn(qs[0], 8)))   # trains its lists
+    ns = f.get_namespace("ivf")
+    row_of = {d["id"]: r for r, d in enumerate(ns.items) if d is not None}
+    got = [([row_of[i] for i in ids], ranks) for ids, ranks in (
+        answer_of(f.select(knn(v, 8))) for v in qs)]     # ids as rows
+    ix = ns.get_index("vec")
+    check_assign(ix, "[replication] R2")
+    q = np.stack([ix.keeper.prepare_query(v) for v in qs])
+    check_ivf(got, probed_scores(ix, oracle_s64(ix, q), ix._probe_host(q, 8)),
+              "[replication] R2 select nprobe 8")
+    for qi, v in enumerate(qs):
+        same_answer(answer_of(sdb.select(knn(v, IVF_NLIST))),
+                    answer_of(f.select(knn(v, IVF_NLIST))),
+                    f"[replication] R2 select over all lists [{qi}]")
+    torch.cuda.synchronize()
+    k6 = counters["ivf_seg_scan"].value
+    if not k6:
+        raise AssertionError("[replication] R2's IVF selects did not launch "
+                             "K6")
+    log(f"[replication] R2 (HttpLeaderChannel to [server]'s HTTP, the sqlite "
+        f"database's IVF namespace, {n_sync} docs x {IVF_API_D} cosine, "
+        f"{IVF_NLIST} lists) on {card}: chunked force sync {t_sync:.2f} s "
+        f"({n_sync / t_sync:.0f} docs/s, {repl.force_sync_chunks} chunks); "
+        f"{REPL_IVF_UPDATES + REPL_IVF_DELETES + REPL_IVF_NEW} leader writes "
+        f"replayed in {t_replay:.2f} s, data hashes equal; first select "
+        f"{1e3 * t_first:.1f} ms (trains its {IVF_NLIST} lists); "
+        f"{REPL_IVF_Q} selects at nprobe 8 equal the probed-set float64 "
+        f"oracle of its own lists, at nprobe {IVF_NLIST} the leader's "
+        f"answers; K6 launches {k6}")
+    del f
+    return k6
+
+
+def phase_replication(card: str, dev, leader, servers, ivf_rows) -> dict:
+    """[replication]: R1 follows the hybrid database (served by an
+    in-process RpcServer), R2 the [server] sqlite database over HTTP.
+    Returns K1's, K2's and K6's launches."""
+    from reindexer_tpu_torch.net.rpc_server import RpcServer
+    from reindexer_tpu_torch.server.http import DBManager
+    mgr = DBManager(device=dev)
+    mgr.dbs["hyb"] = leader
+    rpcd = RpcServer(mgr=mgr, port=0)
+    rpcd.start()
+    try:
+        launches = replica_rpc(card, dev, leader, rpcd.port)
+    finally:
+        rpcd.stop()
+    launches["ivf_seg_scan"] = replica_http(card, dev, servers[0], ivf_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cluster_rows(node, base: np.ndarray, tag: str) -> None:
+    """node holds exactly the rows 0..len(base)-1 with base's vectors."""
+    from reindexer_tpu_torch import Query
+    docs = sorted(node.select(Query("bf").select("vectors()").limit(
+        10 ** 9)).docs(), key=lambda d: d["id"])
+    if [d["id"] for d in docs] != list(range(len(base))) or not \
+            np.array_equal(np.asarray([d["vec"] for d in docs], np.float32),
+                           base):
+        raise AssertionError(f"[cluster] {tag}: node {node.server_id} holds "
+                             f"{len(docs)} rows, not the acknowledged ones")
+
+
+def cluster_run(card: str, tag: str, nodes, n: int) -> dict:
+    """BF config #1's shape on a started 3-node cluster: n upserts through
+    the live nodes in turn (a failed write is retried until acknowledged),
+    the leader killed at n / 2; every acknowledged row read back from every
+    live node and, after it catches up, from the revived one; 64 KNN
+    selects (k=100) on every node against the float64 oracle. Returns K1's
+    and K2's launches over the selects."""
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     KnnSearchParams, Query, ReindexerError,
+                                     VectorMetric)
+    from reindexer_tpu_torch.cluster import wait_leader
+    rng = np.random.default_rng(SEED + 41)
+    base = rng.standard_normal((n, CLUSTER_D), dtype=np.float32)
+    rows = base.tolist()
+    t0 = time.perf_counter()
+    leader = wait_leader(nodes, CLUSTER_WAIT_S)
+    if leader is None:
+        raise AssertionError(f"[cluster] {tag}: no leader elected")
+    t_first = time.perf_counter() - t0
+    leader.open_namespace("bf", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        IndexDef("vec", "vec_bf", vector_opts=FloatVectorOpts(
+            dims=CLUSTER_D, metric=VectorMetric.L2))])
+    lat, retries = [], [0]
+
+    def write(lo, hi):
+        for i in range(lo, hi):
+            live = [nd for nd in nodes if nd.alive]
+            node = live[i % len(live)]
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    node.upsert("bf", {"id": i, "vec": rows[i]})
+                except ReindexerError:
+                    retries[0] += 1
+                    if retries[0] > 100:
+                        raise
+                    continue
+                lat.append(time.perf_counter() - t1)
+                break
+
+    t0 = time.perf_counter()
+    write(0, n // 2)
+    t_kill = time.perf_counter()
+    leader.kill()
+    new = wait_leader([nd for nd in nodes if nd.alive], CLUSTER_WAIT_S)
+    t_elect = time.perf_counter() - t_kill
+    if new is None or new is leader:
+        raise AssertionError(f"[cluster] {tag}: no new leader after the kill")
+    t1 = time.perf_counter()
+    write(n // 2, n)
+    t_writes = (t_kill - t0) + (time.perf_counter() - t1)
+    for node in nodes:
+        if node.alive:
+            cluster_rows(node, base, tag)
+    leader.revive()
+    t0 = time.perf_counter()
+    while live_docs(leader.db, "bf") != n:
+        if time.perf_counter() - t0 > CLUSTER_WAIT_S:
+            raise AssertionError(f"[cluster] {tag}: the revived node holds "
+                                 f"{live_docs(leader.db, 'bf')} rows")
+        time.sleep(0.01)
+    t_catch = time.perf_counter() - t0
+    cluster_rows(leader, base, tag + " revived")
+    if wait_leader(nodes, CLUSTER_WAIT_S) is None:
+        raise AssertionError(f"[cluster] {tag}: no leader after the revive")
+    qs = rng.standard_normal((CLUSTER_Q, CLUSTER_D), dtype=np.float32)
+    dist = oracle_distances(qs, base, np.ones(n, dtype=bool))
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    params = KnnSearchParams(k=K)
+    for node in nodes:
+        check_against_oracle(
+            [answer_of(node.select(Query("bf").where_knn("vec", v, params)))
+             for v in qs], dist, f"[cluster] {tag} node {node.server_id}")
+    torch.cuda.synchronize()
+    launches = {m: counters[m].value for m in ("bf_scan", "bf_select")}
+    if not all(launches.values()):
+        raise AssertionError(f"[cluster] {tag}: the selects did not launch "
+                             f"K1 and K2: {launches}")
+    p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    log(f"[cluster] {tag} on {card}: 3 nodes, {n} upserts of {CLUSTER_D}-dim "
+        f"L2 rows through the live nodes (quorum 2): {n / t_writes:.1f} "
+        f"writes/s, acknowledged-write latency p50 {p50:.3f} ms p99 "
+        f"{p99:.3f} ms ({retries[0]} retried); first election "
+        f"{t_first:.2f} s; the leader killed at write {n // 2}, a new one "
+        f"elected in {t_elect:.3f} s; every acknowledged row read back from "
+        f"every live node, and from the revived one after its catch-up "
+        f"({t_catch:.2f} s for {n - n // 2} records); {CLUSTER_Q} KNN "
+        f"selects (k={K}) on each node equal the float64 oracle; launches "
+        f"K1 {launches['bf_scan']}, K2 {launches['bf_select']}")
+    node = nodes[0]
+    log(f"[cluster] {tag} a node's select: " + host_and_device(
+        lambda: node.select(Query("bf").where_knn("vec", qs[0], params))))
+    return launches
+
+
+def phase_cluster(card: str, dev) -> dict:
+    """[cluster]: make_cluster(3) in process at CLUSTER_N writes, then
+    make_tcp_cluster(3) over sockets at CLUSTER_TCP_N. Returns K1's and
+    K2's launches."""
+    from reindexer_tpu_torch.cluster import make_cluster
+    from reindexer_tpu_torch.net.cluster_transport import make_tcp_cluster
+    nodes = make_cluster(3, device=dev)
+    try:
+        launches = cluster_run(card, "in-process", nodes, CLUSTER_N)
+    finally:
+        for node in nodes:
+            node.stop()
+    nodes, servers = make_tcp_cluster(3, device=dev)
+    try:
+        for name, v in cluster_run(card, "TCP", nodes, CLUSTER_TCP_N).items():
+            launches[name] += v
+    finally:
+        for node in nodes:
+            node.stop()
+        for srv in servers:
+            srv.stop()
+    del nodes, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def shard_config(hi: int):
+    """grp (i % 10): shard 0 values 0-2, shard 1 values 3-5, shard 2 the
+    range 6..hi, shard 3 the default."""
+    from reindexer_tpu_torch.sharding import (NamespaceShardingConfig,
+                                              ShardKeyRange, ShardSpec)
+    return NamespaceShardingConfig(
+        namespace="h", index="grp", shards=(
+            ShardSpec(0, values=(0, 1, 2)), ShardSpec(1, values=(3, 4, 5)),
+            ShardSpec(2, ranges=(ShardKeyRange(6, hi),))), default_shard=3)
+
+
+def phase_sharding(card: str, dev, leader) -> dict:
+    """[sharding]: ShardedReindexer over 4 port databases on the card, and
+    the same 4 on the CPU, holding the hybrid database's documents (after
+    [replication]'s writes) sharded by grp. Exact answers (pinned and
+    distributed scalar selects, KNN, aggregations) equal the unsharded
+    database's; full text and hybrid (ranked per shard) equal the CPU's
+    sharded set. Then a reshard moving grp 8-9 to shard 2 while a writer
+    runs. Returns K1's and K2's launches."""
+    from reindexer_tpu_torch import KnnSearchParams, Query, Reindexer
+    from reindexer_tpu_torch.sharding import ShardedReindexer
+    knn, match, hybrid = hyb_queries()
+    defs = leader.get_namespace("h").index_defs()
+    rows = leader.select(Query("h").select("vectors()").sort("id").limit(
+        10 ** 9)).docs()
+
+    def build(device):
+        sr = ShardedReindexer([Reindexer(device=device) for _ in range(4)],
+                              [shard_config(7)])
+        sr.open_namespace("h", defs)
+        for doc in rows:
+            sr.upsert("h", doc)
+        return sr
+
+    rng = np.random.default_rng(SHARD_SEED)
+    qs = rng.normal(size=(REPL_Q, HYB_D)).astype(np.float32)
+    sr, t_card = timed(lambda: build(dev))
+    cpu, t_cpu = timed(lambda: build(torch.device("cpu")))
+    try:
+        sizes = [live_docs(sh, "h") for sh in sr.shards]
+        _, t_first = timed(lambda: sr.select(knn(qs[0])))
+        _, t_first_match = timed(lambda: sr.select(match))
+        counters = kernel_counters()
+        for c in counters.values():
+            c.reset()
+        pinned = Query("h").where("grp", "=", 3).sort("id").limit(200)
+        spread = Query("h").where("grp", "<", 5).sort("id").offset(50).limit(
+            100)
+        if sr._pinned_shard(pinned) != 1 or sr._pinned_shard(spread) is not \
+                None:
+            raise AssertionError("[sharding] pinned / distributed routing")
+        for tag, q in (("pinned grp = 3", pinned), ("distributed grp < 5",
+                                                    spread)):
+            if answer_of(sr.select(q))[0] != answer_of(leader.select(q))[0]:
+                raise AssertionError(f"[sharding] {tag} differs from the "
+                                     "unsharded database")
+        for qi, v in enumerate(qs):
+            same_answer(answer_of(leader.select(knn(v))),
+                        answer_of(sr.select(knn(v))),
+                        f"[sharding] distributed KNN {qi}")
+        same_answer(answer_of(cpu.select(match)), answer_of(sr.select(match)),
+                    "[sharding] match against the CPU's shards",
+                    rtol=0.0, atol=FT_RANK_ATOL)
+        same_answer(answer_of(cpu.select(hybrid(qs[0]))),
+                    answer_of(sr.select(hybrid(qs[0]))),
+                    "[sharding] hybrid RRF against the CPU's shards")
+        aggs = {"count": Query("h").where("grp", "<", 7).req_total_count()
+                .limit(0),
+                "sum": Query("h").aggregate_sum("grp"),
+                "facet": Query("h").aggregate_facet("grp")}
+
+        def agg_of(db, q):
+            res = db.select(q)
+            return (res.total_count, [(a.value, sorted(
+                (f.values, f.count) for f in a.facets))
+                for a in res.aggregations])
+        for tag, q in aggs.items():
+            if agg_of(sr, q) != agg_of(leader, q):
+                raise AssertionError(f"[sharding] {tag}: {agg_of(sr, q)} "
+                                     f"against {agg_of(leader, q)}")
+        torch.cuda.synchronize()
+        launches = {m: counters[m].value for m in ("bf_scan", "bf_select")}
+        if not all(launches.values()):
+            raise AssertionError(f"[sharding] the distributed selects did not"
+                                 f" launch K1 and K2: {launches}")
+        log(f"[sharding] ShardedReindexer over 4 port databases on {card}, "
+            f"{len(rows)} hybrid documents by grp (shard sizes {sizes}): "
+            f"set-up by sr.upsert {t_card:.1f} s (the CPU's 4 shards "
+            f"{t_cpu:.1f} s), first select {1e3 * t_first:.1f} ms, first "
+            f"match (4 full-text builds) {1e3 * t_first_match:.1f} ms; pinned "
+            f"grp = 3 and distributed grp < 5, {REPL_Q} distributed KNN "
+            f"(k={K}), count / sum / facet equal the unsharded database's; "
+            f"match and hybrid RRF (ranked per shard) equal the CPU's shards;"
+            f" launches K1 {launches['bf_scan']}, K2 {launches['bf_select']}")
+        log(f"[sharding] a distributed KNN select: " + host_and_device(
+            lambda: sr.select(knn(qs[0]))) + "; the unsharded database's: "
+            + host_and_device(lambda: leader.select(knn(qs[0]))))
+        wrng = np.random.default_rng(SHARD_SEED + 1)
+        new = [{"id": 10_000_000 + j, "grp": j % 10,
+                "title": f"w3 w7 w{j % 5000}", "vec": wrng.normal(
+                    size=HYB_D).astype(np.float32).tolist()}
+               for j in range(SHARD_WRITES)]
+        errors = []
+
+        def writer():
+            try:
+                for doc in new:
+                    sr.upsert("h", doc)
+                    leader.upsert("h", doc)
+            except Exception as e:     # re-raised below, in the main thread
+                errors.append(e)
+
+        th = threading.Thread(target=writer)
+        th.start()
+        moved, t_reshard = timed(lambda: sr.apply_sharding_config(
+            [shard_config(9)]))
+        th.join(timeout=SERVER_TIMEOUT_S)
+        if th.is_alive() or errors:
+            raise AssertionError(f"[sharding] the writer: {errors}")
+        stragglers = sr.apply_sharding_config([shard_config(9)])
+        want = shard_config(9)
+        from reindexer_tpu_torch.sharding import Locator
+        loc, seen = Locator(want), set()
+        for sid, sh in enumerate(sr.shards):
+            for d in sh.select(Query("h").limit(10 ** 9)).docs():
+                if loc.shard_of(d["grp"]) != sid or d["id"] in seen:
+                    raise AssertionError(f"[sharding] after the reshard row "
+                                         f"{d['id']} (grp {d['grp']}) is on "
+                                         f"shard {sid}")
+                seen.add(d["id"])
+        if len(seen) != len(rows) + SHARD_WRITES:
+            raise AssertionError(f"[sharding] {len(seen)} rows after the "
+                                 "reshard")
+        for qi, v in enumerate(qs[:16]):
+            same_answer(answer_of(leader.select(knn(v))),
+                        answer_of(sr.select(knn(v))),
+                        f"[sharding] distributed KNN after the reshard {qi}")
+        log(f"[sharding] apply_sharding_config moving grp 8-9 to shard 2 "
+            f"beside {SHARD_WRITES} writes: {moved['h']} rows moved in "
+            f"{t_reshard:.2f} s, {stragglers['h']} written during the move "
+            f"re-routed by a second apply; every row on the shard the new "
+            f"config names, none lost; 16 distributed KNN equal the "
+            f"unsharded database's; shard sizes "
+            f"{[live_docs(sh, 'h') for sh in sr.shards]}")
+    finally:
+        sr.close()
+        cpu.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     global HNSW_N
     if not torch.cuda.is_available():
@@ -3169,24 +3811,38 @@ def main() -> int:
     mark("HNSW")
     phase_ft(card, dev)
     mark("full text")
-    for name, n in phase_hybrid(card, dev).items():
+    hyb_launches, hyb, _ = phase_hybrid(card, dev)
+    for name, n in hyb_launches.items():
         launches[name] += n
     mark("hybrid")
+
+    def count(phase_launches: dict) -> None:
+        for name, n in phase_launches.items():
+            launches[name] += n
+
     root = tempfile.mkdtemp(prefix="rx_persist_")
     daemon = Daemon(dev, root)
+    servers = None
     try:
         live, restarted, qs, rows, persist_launches = phase_persist(
             card, dev, root, daemon)
-        for name, n in persist_launches.items():
-            launches[name] += n
+        count(persist_launches)
         mark("persist")
-        for name, n in phase_server(card, dev, root, live, restarted, qs,
-                                    rows, daemon).items():
-            launches[name] += n
+        server_launches, servers = phase_server(card, dev, root, live,
+                                                restarted, qs, rows, daemon)
+        count(server_launches)
         mark("server")
+        count(phase_replication(card, dev, hyb, servers, rows["ivf"]))
+        mark("replication")
     finally:
+        if servers is not None:
+            stop_servers(servers)
         daemon.kill()
         shutil.rmtree(root, ignore_errors=True)
+    count(phase_cluster(card, dev))
+    mark("cluster")
+    count(phase_sharding(card, dev, hyb))
+    mark("sharding")
     loaded = [m for m in ("jax", "reindexer_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"{' and '.join(loaded)} got imported")

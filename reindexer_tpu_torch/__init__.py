@@ -25,9 +25,16 @@ DSN, as in reindexer_tpu (`Reindexer("/path", device="cuda")`,
 re-uploaded to the device. The server plane is imported by path, as in
 reindexer_tpu: `python -m reindexer_tpu_torch.server --storage <root>
 --device cuda` (HTTP and binary RPC), `reindexer_tpu_torch.client`,
-`reindexer_tpu_torch.net.rpc_client`, `reindexer_tpu_torch.tools.cli`.
-Meshes, replication, clustering and sharding raise NotImplementedError
-(see ROADMAP.md).
+`reindexer_tpu_torch.net.rpc_client`, `reindexer_tpu_torch.tools.cli`,
+`reindexer_tpu_torch.server.grpc_service` (where `grpcio` is installed).
+Replication (`reindexer_tpu_torch.replication`: a leader's WAL shipped to
+async followers), the synchronous RAFT cluster (`reindexer_tpu_torch.cluster`,
+`reindexer_tpu_torch.net.cluster_transport`), sharding over several
+databases (`reindexer_tpu_torch.sharding`) and the dataclass mapping
+(`reindexer_tpu_torch.orm`) are imported by path too; followers, cluster
+nodes and shards are port `Reindexer`s, on `cuda` unless told otherwise.
+Meshes (`mesh=`, several devices) raise NotImplementedError (see
+ROADMAP.md A12).
 """
 from .core.database import Reindexer
 from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,

@@ -1,9 +1,7 @@
 """Port of reindexer_tpu/net/rpc_server.py: the reference's server over the
 port's databases: the manager's `Reindexer`s live on its torch device (a
 manager made here takes `device`, default `cuda`), and the worker pool
-calls them from several threads at once. The replication verbs (snapshot,
-updates, snapshot meta and chunks) raise NotImplementedError naming
-ROADMAP A13b.
+calls them from several threads at once.
 
 The reference's notes follow.
 
@@ -28,7 +26,6 @@ import threading
 import time
 from typing import Any, Optional
 
-from ..core.database import not_ported
 from ..core.errors import (ConflictError, NotFoundError, ParamsError,
                            QueryCanceledError, QueryError, ReindexerError)
 from ..core.payload import IndexDef
@@ -488,6 +485,6 @@ class RpcServer:
     def _repl_state(db):
         state = getattr(db, "_replication_state", None)
         if state is None:
-            raise not_ported("replication (snapshots and WAL updates)",
-                             "A13b")
+            from ..replication import ReplicationState
+            state = ReplicationState(db)
         return state

@@ -2,9 +2,9 @@
 
 The port's copy of the reference's host-side executor, streaming KNN
 included (reindexer_tpu_torch/index/vector/streaming.py), and full
-text with its select functions (highlight, snippet: reindexer_tpu_torch/ft/).
-The seam that reaches a layer the port lacks stops here: WAL queries raise
-NotImplementedError (replication, ROADMAP A13b).
+text with its select functions (highlight, snippet: reindexer_tpu_torch/ft/),
+and WAL queries over the port's replication log
+(reindexer_tpu_torch/replication.py).
 
 The reference's notes follow.
 
@@ -161,9 +161,8 @@ class Selecter:
         self.db.get_namespace(q.namespace)       # validates existence
         rs = getattr(self.db, "_replication_state", None)
         if rs is None:
-            raise NotImplementedError(
-                "WAL queries (replication) are not yet ported to "
-                "reindexer_tpu_torch, see ROADMAP A13b")
+            from ..replication import ReplicationState
+            rs = ReplicationState(self.db)
         from_lsn = int(lsn_e.values[0])
         if lsn_e.condition == CondType.GE:
             from_lsn -= 1

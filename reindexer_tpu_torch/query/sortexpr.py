@@ -1,4 +1,16 @@
-"""Sort expressions and hybrid rerankers.
+"""Sort expressions and hybrid rerankers (port of
+reindexer_tpu/query/sortexpr.py).
+
+The port's copy differs in one place: rank() and RRF() over no rows give
+no ranks. The executor skips the entries after a conjunction that is
+already empty, the ranked ones too, so in the reference a hybrid or KNN
+query whose filters match nothing fails with "RRF() used in non-ranked
+query" (or the rank() error) instead of answering nothing, and a sharded
+one fails as soon as one shard has no matching row (ROADMAP C).
+
+The reference's notes follow.
+
+Sort expressions and hybrid rerankers.
 
 Semantic equivalent of the reference sort expression engine
 (cpp_src/core/sorting/sortexpression.cc: fields, arithmetic, abs(), rank(),
@@ -219,6 +231,8 @@ class SortExprEvaluator:
         # rank() | rank(index_name) | rank(index_name, default)
         if self._peek()[1] == ")":
             self._next()
+            if not len(self.rows):
+                return np.zeros(0)
             if len(self.sources) != 1:
                 if not self.sources:
                     raise QueryError("rank() used in non-ranked query")
@@ -240,6 +254,8 @@ class SortExprEvaluator:
                 neg, tok = True, self._next()
             default = float(tok[1]) * (-1 if neg else 1)
         self._expect(")")
+        if not len(self.rows):
+            return np.zeros(0)
         src = self.sources.get(idx_name)
         if src is None:
             raise QueryError(f"rank('{idx_name}'): no ranked entry on that index")
@@ -258,6 +274,8 @@ class SortExprEvaluator:
             else:
                 raise QueryError("RRF() accepts only rank_const=N")
         self._expect(")")
+        if not len(self.rows):
+            return np.zeros(0)
         if not self.sources:
             raise QueryError("RRF() used in non-ranked query")
         out = np.zeros(len(self.rows), dtype=np.float64)

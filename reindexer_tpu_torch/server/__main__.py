@@ -1,7 +1,7 @@
 """Port of reindexer_tpu/server/__main__.py: the reference's daemon with
 `--device` (default `cuda`): every database of the storage root opens on
-that torch device. `--grpc-port` other than 0 raises NotImplementedError
-naming ROADMAP A13b.
+that torch device. `--grpc-port` other than 0 serves the gRPC plane over
+the same databases; only then is `grpcio` imported.
 
 The reference's notes follow.
 
@@ -35,9 +35,6 @@ def main(argv=None) -> int:
                     help="torch device of every database's vector indexes "
                          "(cuda, cuda:<n> or cpu)")
     args = ap.parse_args(argv)
-    if args.grpc_port:
-        from ..core.database import not_ported
-        raise not_ported("the gRPC plane (--grpc-port)", "A13b")
 
     auth = None
     if args.user:
@@ -55,10 +52,18 @@ def main(argv=None) -> int:
                             device=args.device)
     rpcd = RpcServer(mgr=httpd.mgr, host=args.host, port=args.rpc_port,
                      auth=auth)
+    grpcd = None
+    if args.grpc_port:
+        from .grpc_service import GrpcReindexerServer
+        grpcd = GrpcReindexerServer(mgr=httpd.mgr, host=args.host,
+                                    port=args.grpc_port)
     httpd.start()
     rpcd.start()
+    if grpcd is not None:
+        grpcd.start()
     print(f"reindexer_tpu_torch server: http://{args.host}:{httpd.port} "
-          f"rpc {args.host}:{rpcd.port} grpc=0 "
+          f"rpc {args.host}:{rpcd.port} "
+          f"grpc={grpcd.port if grpcd else 0} "
           f"storage={args.storage or '(memory)'} device={httpd.mgr.device}",
           flush=True)
 
@@ -70,6 +75,8 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if grpcd is not None:
+            grpcd.stop()
         rpcd.stop()
         httpd.stop()
     return 0

@@ -2,8 +2,7 @@
 port's databases: `DBManager` and `ReindexerServer` take the torch `device`
 (default `cuda`) every `Reindexer` they open lives on, and a database
 directory holding a sqlite store reopens as `sqlite://` (the reference
-reopens every directory as a FileStorage). The replication routes raise
-NotImplementedError naming ROADMAP A13b.
+reopens every directory as a FileStorage).
 
 The reference's notes follow.
 
@@ -34,7 +33,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
 
-from ..core.database import Reindexer, not_ported, resolve_device
+from ..core.database import Reindexer, resolve_device
 from ..core.errors import (ConflictError, NotFoundError, ParamsError,
                            QueryCanceledError,
                            QueryError, ReindexerError)
@@ -488,8 +487,8 @@ class _Handler(BaseHTTPRequestHandler):
             # verbs, server/rpcserver.cc:1382-1384)
             state = getattr(db, "_replication_state", None)
             if state is None:
-                raise not_ported("replication (snapshots and WAL updates)",
-                                 "A13b")
+                from ..replication import ReplicationState
+                state = ReplicationState(db)
             if len(rest) > 1 and rest[1] == "updates" and method == "GET":
                 from_lsn = int(qs.get("from_lsn", ["0"])[0])
                 return self._send(200, state.updates(from_lsn))

@@ -1,7 +1,6 @@
 """Port of reindexer_tpu/tools/cli.py: the reference's tool; a local DSN
-opens on `--device` (default `cuda`), `--repair` runs the port's
-`repair_storage`, and the WAL dump (`\\dump wal`, replication) raises
-NotImplementedError naming ROADMAP A13b.
+opens on `--device` (default `cuda`) and `--repair` runs the port's
+`repair_storage`.
 
 The reference's notes follow.
 
@@ -29,7 +28,7 @@ import json
 import sys
 from typing import Optional, TextIO
 
-from ..core.database import Reindexer, not_ported
+from ..core.database import Reindexer
 from ..core.errors import ReindexerError
 from ..core.payload import IndexDef
 from ..query.query import Query
@@ -115,7 +114,8 @@ def execute_line(db, line: str, out: TextIO) -> None:
             # log records from the given LSN (default: all retained)
             state = getattr(db, "_replication_state", None)
             if state is None:
-                raise not_ported("the WAL dump (replication)", "A13b")
+                from ..replication import ReplicationState
+                state = ReplicationState(db)
             from_lsn = int(names[1]) if len(names) > 1 else 0
             for rec in state.updates(from_lsn).get("updates", []):
                 out.write(json.dumps(rec, ensure_ascii=False,

@@ -12,8 +12,11 @@ namespace (select, knn_batch, a radius-only select) and an HNSW namespace
 (select, knn_batch, a streaming query, an SQ8 HNSW field and an array
 field) on the CPU, a full-text `match` select on a `text` index, imports
 the storage, network, server, client, events and CLI modules, reopens a
-persistent HNSW namespace from its ANN cache, and checks that no JAX module
-got loaded, nor the JAX package. The static check reads every `*.py` of
+persistent HNSW namespace from its ANN cache, imports the replication,
+cluster, cluster transport, sharding, ORM and gRPC service modules (the
+last without grpcio), syncs a follower over a `LeaderChannel`, runs a
+KNN select over two shards, and checks that no JAX module got loaded, nor
+the JAX package. The static check reads every `*.py` of
 the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
 reindexer_tpu` naming the JAX package.
 """
@@ -173,6 +176,32 @@ with tempfile.TemporaryDirectory() as root:
     res = pdb.select(Query("p").where_knn("v", base[7],
                                           HnswSearchParams(k=3, ef=32)))
     assert [d["id"] for d in res.docs()] == want, res.docs()
+
+import reindexer_tpu_torch.cluster
+import reindexer_tpu_torch.net.cluster_transport
+import reindexer_tpu_torch.orm
+import reindexer_tpu_torch.server.grpc_service
+from reindexer_tpu_torch.replication import (AsyncReplicator, LeaderChannel,
+                                             ReplicationState)
+from reindexer_tpu_torch.sharding import (NamespaceShardingConfig, ShardSpec,
+                                          ShardedReindexer)
+follower = Reindexer(device="cpu")
+repl = AsyncReplicator(follower, LeaderChannel(ReplicationState(db)))
+repl.sync_once()
+assert repl.force_syncs == 1
+assert follower.get_namespace("vecs").data_hash == \
+    db.get_namespace("vecs").data_hash
+sr = ShardedReindexer([Reindexer(device="cpu") for _ in range(2)], [
+    NamespaceShardingConfig("vecs", "id", (ShardSpec(0, values=(7,)),),
+                            default_shard=1)])
+sr.open_namespace("vecs", db.get_namespace("vecs").index_defs())
+for i in range(50):
+    sr.upsert("vecs", {"id": i, "v": base[i].tolist()})
+res = sr.select(Query("vecs").where_knn("v", base[7], KnnSearchParams(k=3)))
+assert [d["id"] for d in res.docs()] == want, (res.docs(), want)
+assert len(sr.shards[0].select(Query("vecs"))) == 1
+sr.close()
+assert "grpc" not in sys.modules
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"))

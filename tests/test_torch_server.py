@@ -19,6 +19,8 @@ same scripted requests:
     answers;
   - the cjson and protobuf encodings are equal byte for byte;
   - the CLI's dump and repair print what the reference's print;
+  - the replication routes and verbs, the CLI's `\\dump wal` and the
+    daemon's `--grpc-port` answer as the reference's do;
   - the server, the manager, the RPC server and the CLI open their
     databases on `cuda` by default, which raises without a card.
 Every socket binds port 0; every thread is joined with a timeout.
@@ -246,17 +248,41 @@ def test_http_script_reaches_every_engine(http_pair):
     assert http_pair["port"]["err_no_ns"][0] == 404
 
 
+REPL = "/api/v1/db/r/replication"
+
+
 def test_http_replication_routes_raise_naming_a13b():
-    srv = ReindexerServer(port=0, device="cpu")
-    srv.start()
-    try:
-        call(srv.port, "POST", "/api/v1/db", {"name": "r"})
-        code, body = call(srv.port, "GET",
-                          "/api/v1/db/r/replication/updates?from_lsn=0")
-    finally:
-        srv.stop()
-        srv._thread.join(timeout=JOIN_S)
-    assert code == 500 and "ROADMAP A13b" in body["description"]
+    """The replication routes (a seam that raised before replication was
+    ported; the name is kept) answer as the reference's: the updates of a
+    lazily made replication state (a force sync, then WAL records), the
+    snapshot, its meta and a chunk."""
+    from reindexer_tpu.server.http import ReindexerServer as RefServer
+    got = {}
+    for name, srv in (("ref", RefServer(port=0)),
+                      ("port", ReindexerServer(port=0, device="cpu"))):
+        srv.start()
+        try:
+            call(srv.port, "POST", "/api/v1/db", {"name": "r"})
+            call(srv.port, "POST", "/api/v1/db/r/namespaces",
+                 SCRIPT[3][3] | {"name": "items"})
+            call(srv.port, "PUT", "/api/v1/db/r/namespaces/items/items",
+                 _rows(8))
+            got[name] = [call(srv.port, "GET", f"{REPL}/{path}") for path in (
+                "updates?from_lsn=0", "snapshot", "snapshot_meta",
+                "snapshot_chunk?ns=items&offset=2&limit=3")]
+            call(srv.port, "PUT", "/api/v1/db/r/namespaces/items/items",
+                 _rows(10)[8:])
+            call(srv.port, "DELETE", "/api/v1/db/r/namespaces/items/items",
+                 [{"id": 1}])
+            got[name].append(call(srv.port, "GET",
+                                  f"{REPL}/updates?from_lsn=1"))
+        finally:
+            srv.stop()
+            srv._thread.join(timeout=JOIN_S)
+    same_json(got["port"], got["ref"])
+    assert got["port"][0] == (200, {"force_sync": True, "last_lsn": 1})
+    assert [r["op"] for r in got["port"][4][1]["updates"]] == [
+        "upsert", "upsert", "delete"]
 
 
 def test_http_protobuf_response_matches_reference(http_pair):
@@ -440,15 +466,36 @@ def test_rpc_concurrent_vec_bf_selects_equal_serial(rpc_pair):
 
 
 def test_rpc_replication_verbs_raise_naming_a13b(rpc_pair):
+    """The replication verbs (a seam that raised before replication was
+    ported; the name is kept) answer as the reference's, on a database of
+    their own on each server: GET_UPDATES (a force sync, then records),
+    GET_SNAPSHOT, GET_SNAPSHOT_META and GET_SNAPSHOT_CHUNK."""
     from reindexer_tpu_torch.net.protocol import Cmd
     servers, _ = rpc_pair
-    c = RpcReindexer("127.0.0.1", servers["port"].port, "rdb")
-    try:
-        for cmd, args in ((Cmd.GET_SNAPSHOT, []), (Cmd.GET_UPDATES, [0])):
-            with pytest.raises(Exception, match="A13b"):
-                c._call(cmd, args)
-    finally:
-        c.close()
+    got = {}
+    for name, srv in servers.items():
+        pkg = port if name == "port" else _ref()
+        c = _mod(name, "net.rpc_client").RpcReindexer("127.0.0.1", srv.port,
+                                                       "repl")
+        try:
+            c.open_namespace("t", [pkg.IndexDef(
+                "id", "hash", "int", opts=pkg.IndexOpts(is_pk=True))])
+            for doc in _rows(6):
+                c.upsert("t", doc)
+            verbs = [(Cmd.GET_UPDATES, [0]), (Cmd.GET_SNAPSHOT, []),
+                     (Cmd.GET_SNAPSHOT_META, []),
+                     (Cmd.GET_SNAPSHOT_CHUNK, ["t", 1, 2])]
+            got[name] = [json.loads(c._call(cmd, args)[0])
+                         for cmd, args in verbs]
+            c.upsert("t", _rows(7)[6])
+            c.put_meta("t", "k", "v")
+            got[name].append(json.loads(c._call(Cmd.GET_UPDATES, [1])[0]))
+        finally:
+            c.close()
+    same_json(got["port"], got["ref"])
+    assert got["port"][0] == {"force_sync": True, "last_lsn": 1}
+    assert [r["op"] for r in got["port"][4]["updates"]] == [
+        "upsert", "put_meta"]
 
 
 def test_rpc_event_subscription_streams_upserts(rpc_pair):
@@ -734,16 +781,30 @@ def test_cli_dump_matches_reference_and_restores():
 
 
 def test_cli_commands_and_wal_dump_seam():
-    db, out = port.Reindexer(device="cpu"), io.StringIO()
-    cli.execute_line(db, '\\namespaces add {"name": "c", "indexes": '
+    """The CLI's commands, and `\\dump wal` (a seam that raised before
+    replication was ported), print what the reference's print: the first
+    dump makes the replication state over an existing namespace (its ring
+    starts past LSN 1, so a dump from 0 prints nothing, as a follower there
+    would force-sync), the later ones the records after LSN 1 and 2."""
+    outs = {}
+    for pkg, mod in ((port, cli), (_ref(), _mod("ref", "tools.cli"))):
+        db = pkg.Reindexer(device="cpu") if pkg is port else pkg.Reindexer()
+        out = io.StringIO()
+        for line in ('\\namespaces add {"name": "c", "indexes": '
                      '[{"name": "id", "index_type": "hash", "field_type": '
-                     '"int", "is_pk": true}]}', out)
-    cli.execute_line(db, '\\upsert c {"id": 1, "x": "y"}', out)
-    cli.execute_line(db, "SELECT * FROM c", out)
-    lines = [s for s in out.getvalue().splitlines() if s.startswith("{")]
-    assert json.loads(lines[0]) == {"id": 1, "x": "y"}
-    with pytest.raises(NotImplementedError, match="A13b"):
-        cli.execute_line(db, "\\dump wal", out)
+                     '"int", "is_pk": true}]}', "\\dump wal",
+                     '\\upsert c {"id": 1, "x": "y"}',
+                     '\\upsert c {"id": 2, "x": "z"}', "SELECT * FROM c",
+                     "\\dump wal", "\\dump wal 1", "\\dump wal 2",
+                     "\\dump c"):
+            mod.execute_line(db, line, out)
+        outs[pkg is port] = out.getvalue()
+    assert outs[True] == outs[False]
+    lines = [json.loads(s) for s in outs[True].splitlines()
+             if s.startswith("{")]
+    assert lines[0] == {"id": 1, "x": "y"}
+    assert [(r["lsn"], r["op"], r["doc"]["id"]) for r in lines[2:5]] == [
+        (2, "upsert", 1), (3, "upsert", 2), (3, "upsert", 2)]
 
 
 @pytest.mark.parametrize("pkg_name", ["ref", "port"])
@@ -805,9 +866,72 @@ def test_server_plane_defaults_to_cuda(tmp_path, make):
 
 
 def test_daemon_grpc_port_raises_naming_a13b():
-    from reindexer_tpu_torch.server import __main__ as daemon
-    with pytest.raises(NotImplementedError, match="A13b"):
-        daemon.main(["--grpc-port", "1", "--device", "cpu"])
+    """`--grpc-port` (it raised before the gRPC plane was ported; the name
+    is kept) serves gRPC beside HTTP and RPC: the daemon answers the same
+    calls as the reference's service over the same requests. Needs
+    grpcio."""
+    grpc = pytest.importorskip("grpc")
+    import socket
+    from reindexer_tpu.server import grpc_service as ref_g
+    from reindexer_tpu.server.http import DBManager as RefManager
+    from reindexer_tpu_torch.server import grpc_service as g
+    ident = lambda b: b  # noqa: E731
+
+    def session(port_no):
+        with grpc.insecure_channel(f"127.0.0.1:{port_no}") as ch:
+            def unary(method, req, spec, resp):
+                return g.decode(ch.unary_unary(
+                    f"/{g.SERVICE}/{method}", request_serializer=ident,
+                    response_deserializer=ident)(g.encode(req, spec)), resp)
+            out = [unary("CreateDatabase", {"dbName": "d"}, g.DB_REQ,
+                         g.ERROR),
+                   unary("AddNamespace", {"dbName": "d", "namespace": {
+                       "name": "n", "indexesDefinitions": [{
+                           "name": "id", "jsonPaths": ["id"],
+                           "indexType": "hash", "fieldType": "int",
+                           "options": {"isPk": True}}]}}, g.ADD_NS, g.ERROR)]
+            out += [g.decode(b, g.ERROR) for b in ch.stream_stream(
+                f"/{g.SERVICE}/ModifyItem", request_serializer=ident,
+                response_deserializer=ident)(iter([g.encode({
+                    "dbName": "d", "nsName": "n", "mode": 0,
+                    "encodingType": 0, "data": json.dumps(
+                        {"id": i, "v": i * i}).encode()}, g.MODIFY)
+                    for i in range(4)]))]
+            out += [g.decode(b, g.QR_RESP) for b in ch.unary_stream(
+                f"/{g.SERVICE}/ExecSql", request_serializer=ident,
+                response_deserializer=ident)(g.encode({
+                    "dbName": "d", "sql": "SELECT * FROM n WHERE id > 0"},
+                    g.SQL_REQ))]
+            return out
+
+    ref = ref_g.GrpcReindexerServer(RefManager())
+    ref.start()
+    try:
+        want = session(ref.port)
+    finally:
+        ref.stop()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "reindexer_tpu_torch.server", "--http-port",
+         "0", "--rpc-port", "0", "--grpc-port", str(free), "--device",
+         "cpu"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert f"grpc={free}" in line, line + proc.stderr.read()
+        assert session(free) == want and len(want) == 9
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=JOIN_S) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=JOIN_S)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_daemon_serves_storage_and_exits_on_sigterm(tmp_path):
