@@ -184,6 +184,22 @@ Phases, in order; any failure raises, so the exit code is not 0:
      grp 8-9 to shard 2 while a writer upserts 500 rows (rows moved,
      seconds, every row where the new config puts it, 16 KNN equal the
      unsharded database's); K1 and K2 must launch;
+ 22. [mesh], mesh mode (Reindexer(mesh=make_mesh_context(S))): BF config
+     #1 (phase 3's rows, 1,000 deletes) over 4 and 8 shards of cuda:0 (2
+     shards cut for the phase's time), and over the distinct cards when
+     there are several; 64 selects and a
+     knn_batch(64) equal the one-device database's (ids up to ties, ranks
+     rtol 1e-4), K1 and K2 launched once a shard a dispatch, no rerun, no
+     plain scan; host ms, device ms and idle share of knn_batch(64) and
+     select beside one device's. Over 4 shards: SQ8 approx and
+     approx_rerank (K3 S mode + K2 a shard) equal to the same database
+     through the kernels' plain versions; the IVF API's namespace (100,000
+     x 128 cosine, 1,024 lists) at nprobe 1,024 against the float64
+     oracle, by the probe-mask route (no K6); the HNSW API's namespace
+     (20,000 x 96 IP, round-robin shards) at recall@10 >= 0.95 at ef 128;
+     hybrid config #5 (text doc-sharded, KNN by K1 + K2) with RRF and
+     linear ranks equal to one device's. Its K1, K2 and K3 launches join
+     the kernel line's;
 then one JSON line for the kernels (with each one's bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100's peak for their
 type) and, last, the result line.
@@ -645,30 +661,49 @@ def check_against_oracle(results, dist, tag: str) -> None:
                                  f"{np.abs(np.asarray(ranks) - exact).max()}")
 
 
-def phase_main_path(card: str) -> dict:
-    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
-                                     KnnSearchParams, Query, Reindexer,
-                                     VectorMetric)
-    from reindexer_tpu_torch.index.vector import brute_force
-    from reindexer_tpu_torch.ops import scan, select
+def bf_config1():
+    """BF config #1's rows, queries and deletes (seed SEED + 1)."""
     rng = np.random.default_rng(SEED + 1)
     base = rng.standard_normal((DOCS, MAIN_D), dtype=np.float32)
     queries = rng.standard_normal((256, MAIN_D), dtype=np.float32)
     deleted = rng.choice(DOCS, size=DELETES, replace=False)
+    return base, queries, deleted
+
+
+def bf_db(base, deleted, fields=None, **kw):
+    """BF config #1's namespace "bf" through db.upsert: one vec_bf field
+    "vec", or `fields` (name -> QuantizationConfig) over the same rows;
+    kw goes to Reindexer (device, mesh)."""
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     QuantizationConfig, Reindexer,
+                                     VectorMetric)
+    fields = fields or {"vec": QuantizationConfig()}
+    db = Reindexer(**kw)
+    db.open_namespace("bf", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True))] + [
+        IndexDef(name, "vec_bf", vector_opts=FloatVectorOpts(
+            dims=MAIN_D, metric=VectorMetric.L2, quantization=qc))
+        for name, qc in fields.items()])
+    rows = base.tolist()
+    for i in range(len(rows)):
+        db.upsert("bf", {"id": i, **{name: rows[i] for name in fields}})
+    for i in deleted.tolist():
+        db.delete("bf", {"id": i})
+    return db
+
+
+def phase_main_path(card: str):
+    """The fp32 main path; returns (K1's and K2's launches, the
+    database)."""
+    from reindexer_tpu_torch import KnnSearchParams, Query
+    from reindexer_tpu_torch.index.vector import brute_force
+    from reindexer_tpu_torch.ops import scan, select
+    base, queries, deleted = bf_config1()
     alive = np.ones(DOCS, dtype=bool)
     alive[deleted] = False
 
     t0 = time.perf_counter()
-    db = Reindexer(device="cuda")
-    db.open_namespace("bf", [
-        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
-        IndexDef("vec", "vec_bf", vector_opts=FloatVectorOpts(
-            dims=MAIN_D, metric=VectorMetric.L2))])
-    rows = base.tolist()
-    for i in range(DOCS):
-        db.upsert("bf", {"id": i, "vec": rows[i]})
-    for i in deleted.tolist():
-        db.delete("bf", {"id": i})
+    db = bf_db(base, deleted, device="cuda")
     log(f"[main] set-up: {DOCS} upserts + {DELETES} deletes in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -726,7 +761,7 @@ def phase_main_path(card: str) -> dict:
         busy, idle, top = device_profile(fn)
         log(f"[main] {tag}: host {1e3 * statistics.median(secs):.3f} ms, "
             f"device {busy:.4f} ms, idle share {idle:.4f} ({top}) on {card}")
-    return {"bf_scan": k1, "bf_select": k2}
+    return {"bf_scan": k1, "bf_select": k2}, db
 
 
 def make_clustered(rng, n: int, n_q: int):
@@ -2423,13 +2458,14 @@ def phase_ft(card: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def hybrid_db(dev):
+def hybrid_db(dev, mesh=None):
     """bench_hybrid's namespace: 100,000 docs, grp, a text index over 8
-    zipf(1.3) words of 5,000, a 128-dim L2 vec_bf field; seed 13."""
+    zipf(1.3) words of 5,000, a 128-dim L2 vec_bf field; seed 13; on a
+    mesh (parallel.context.MeshContext) of dev's type when one is given."""
     from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
                                      IndexType, Reindexer, VectorMetric)
     rng = np.random.default_rng(HYB_SEED)
-    db = Reindexer(device=dev)
+    db = Reindexer(device=dev, mesh=mesh)
     db.open_namespace("h", [
         IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
         IndexDef("grp", "hash", "int"),
@@ -2454,7 +2490,7 @@ def phase_hybrid(card: str, dev):
     CPU: the RRF query and a linear rerank, the full-text public API on the
     same namespace. Returns K1's and K2's launches over the card's run, the
     card's database (the leader of [replication], the data of [sharding])
-    and the query vector."""
+    and the CPU's (the one-device answers of [mesh]'s hybrid check)."""
     from reindexer_tpu_torch import BruteForceSearchParams, Query
     from reindexer_tpu_torch.ops import scan, select
     t0 = time.perf_counter()
@@ -2503,7 +2539,7 @@ def phase_hybrid(card: str, dev):
             f"ms a select (host clock), {ft_device(lambda: gpu.select(q), 5)}"
             f" on {card}")
     phase_ft_api(gpu)
-    return launches, gpu, qv
+    return launches, gpu, cpu
 
 
 def phase_ft_api(db) -> None:
@@ -3769,6 +3805,352 @@ def phase_sharding(card: str, dev, leader) -> dict:
     return launches
 
 
+# shards of cuda:0 for BF config #1; S = 2 is cut for the phase's time
+# (with it the phase took 170.8 s on an H100, above its 150 s share)
+MESH_SHARDS = (4, 8)
+MESH_S = 4                  # shards for SQ8, IVF, HNSW and hybrid
+MESH_Q = 64                 # single selects per BF run (+ one knn_batch(64))
+MESH_SQ8_Q = 16             # single selects per SQ8 field
+MESH_SQ8 = ("approx", "approx_rerank")
+
+
+def mesh_answers(db, ns: str, field: str, queries, params, n_single: int):
+    """(answers of n_single selects and of one knn_batch over queries,
+    host seconds of the run)."""
+    from reindexer_tpu_torch import Query
+    t0 = time.perf_counter()
+    out = [answer_of(db.select(Query(ns).where_knn(field, v, params)))
+           for v in queries[:n_single]]
+    out += [answer_of(r) for r in db.knn_batch(ns, field, queries, params)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_same(want: list, got: list, tag: str, rtol: float,
+              atol: float) -> None:
+    for j, (w, g) in enumerate(zip(want, got, strict=True)):
+        same_answer(w, g, f"{tag} [{j}]", rtol=rtol, atol=atol)
+
+
+def mesh_db(dev, ctx, base, deleted, ivf_base=None):
+    """BF config #1's namespace "bf" on a mesh through db.upsert: the fp32
+    field "vec"; with ivf_base also the SQ8 fields of MESH_SQ8 over the
+    same rows and the IVF API's rows as "iv" (cosine, 1,024 lists), one
+    set-up for the 4-shard checks."""
+    from reindexer_tpu_torch import (FloatVectorOpts, IndexDef, IndexOpts,
+                                     QuantizationConfig, Reindexer,
+                                     VectorMetric)
+    defs = [IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+            IndexDef("vec", "vec_bf", vector_opts=FloatVectorOpts(
+                dims=MAIN_D, metric=VectorMetric.L2))]
+    if ivf_base is not None:
+        defs += [IndexDef(m, "vec_bf", vector_opts=FloatVectorOpts(
+            dims=MAIN_D, metric=VectorMetric.L2,
+            quantization=QuantizationConfig(enabled=True, mode=m)))
+            for m in MESH_SQ8]
+        defs.append(IndexDef("iv", "ivf", vector_opts=FloatVectorOpts(
+            dims=IVF_API_D, metric=VectorMetric.COSINE,
+            centroids_count=IVF_NLIST)))
+    db = Reindexer(device=dev, mesh=ctx)
+    db.open_namespace("bf", defs)
+    rows = base.tolist()
+    iv = ivf_base.tolist() if ivf_base is not None else None
+    for i in range(len(rows)):
+        doc = {"id": i, "vec": rows[i]}
+        if iv is not None:
+            doc.update({m: rows[i] for m in MESH_SQ8}, iv=iv[i])
+        db.upsert("bf", doc)
+    for i in deleted.tolist():
+        db.delete("bf", {"id": i})
+    return db
+
+
+def mesh_bf(card: str, dev, main_db, launches: dict):
+    """BF config #1 over S shards of cuda:0 (and over the distinct cards
+    when there are several): ids equal the one-device database's, K1 and
+    K2 launched once a shard a dispatch. Returns the MESH_S database,
+    which also holds the SQ8 and IVF fields."""
+    from reindexer_tpu_torch import KnnSearchParams, Query
+    from reindexer_tpu_torch.index.vector import brute_force
+    from reindexer_tpu_torch.parallel.context import make_mesh_context
+    base, queries, deleted = bf_config1()
+    ivf_base, _ = make_ivf_data(DOCS, IVF_API_D, 16)
+    qs = queries[:MESH_Q]
+    params = KnnSearchParams(k=K)
+    want, t_one = mesh_answers(main_db, "bf", "vec", qs, params, MESH_Q)
+    one = {tag: host_and_device(fn) for tag, fn in (
+        ("knn_batch(64)", lambda: main_db.knn_batch("bf", "vec", qs,
+                                                    params)),
+        ("select", lambda: main_db.select(
+            Query("bf").where_knn("vec", qs[0], params))))}
+    log(f"[mesh] BF config #1 on one device ({card}): {MESH_Q} selects + "
+        f"knn_batch(64) {t_one:.2f} s; knn_batch(64) {one['knn_batch(64)']};"
+        f" select {one['select']}")
+    meshes = [(f"{n} shards of cuda:0", make_mesh_context(n, ["cuda:0"]))
+              for n in MESH_SHARDS]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes.append((f"{n_cards} cards", make_mesh_context(n_cards)))
+    else:
+        log("[mesh] one card: the distinct-cards mesh is not run")
+    counters = kernel_counters()
+    kept = None
+    for tag, ctx in meshes:
+        S = ctx.n_shards
+        full = S == MESH_S and kept is None
+        t0 = time.perf_counter()
+        db = mesh_db(dev, ctx, base, deleted, ivf_base if full else None)
+        t_set = time.perf_counter() - t0
+        db.select(Query("bf").where_knn("vec", qs[0], params))  # the flush
+        for c in (*counters.values(), brute_force.overflow_reruns,
+                  brute_force.geometry_scans):
+            c.reset()
+        got, t_run = mesh_answers(db, "bf", "vec", qs, params, MESH_Q)
+        k1, k2 = counters["bf_scan"].value, counters["bf_select"].value
+        reruns = brute_force.overflow_reruns.value
+        geo = brute_force.geometry_scans.value
+        mesh_same(want, got, f"[mesh] BF {tag}", RANK_RTOL, 1e-3)
+        # one K1 and one K2 a shard a dispatch: MESH_Q selects and one
+        # knn_batch(64), one group of 64 queries
+        expect = S * (MESH_Q + 1)
+        if k1 != expect or k2 != expect or reruns or geo:
+            raise AssertionError(f"[mesh] BF {tag}: K1 {k1}, K2 {k2} "
+                                 f"launches, {reruns} reruns, {geo} plain "
+                                 f"scans; expected {expect} launches each")
+        launches["bf_scan"] += k1
+        launches["bf_select"] += k2
+        kp = db.get_namespace("bf").get_index("vec").keeper
+        rows = sorted({sh.data.shape[0] for sh in kp.shards})
+        devs = sorted({str(sh.data.device) for sh in kp.shards})
+        log(f"[mesh] BF {tag}: set-up {t_set:.1f} s"
+            f"{' (with the SQ8 and IVF fields)' if full else ''}, "
+            f"{len(kp.shards)} shards of {rows} rows on {devs}; {MESH_Q} "
+            f"selects + knn_batch(64) {t_run:.2f} s equal the one-device "
+            f"answers (ids up to ties, ranks rtol {RANK_RTOL}); K1 {k1}, K2 "
+            f"{k2} launches ({S} a dispatch)")
+        for what, fn in (("knn_batch(64)", lambda: db.knn_batch(
+                "bf", "vec", qs, params)), ("select", lambda: db.select(
+                    Query("bf").where_knn("vec", qs[0], params)))):
+            log(f"[mesh] BF {tag} {what}: {host_and_device(fn)}; one "
+                f"device: {one[what]} on {card}")
+        if full:
+            kept = db
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+    return kept
+
+
+def mesh_sq8(card: str, db, launches: dict) -> None:
+    """SQ8 approx and approx_rerank over MESH_S shards (the fields of
+    mesh_bf's database): K3 (S mode) + K2 a shard, equal to the same
+    database through the kernels' plain versions."""
+    from reindexer_tpu_torch import KnnSearchParams
+    from reindexer_tpu_torch.ops import scan, select
+    _, queries, _ = bf_config1()
+    qs = queries[:MESH_Q]
+    params = KnnSearchParams(k=K)
+    for m in MESH_SQ8:
+        mesh_answers(db, "bf", m, qs[:1], params, 1)   # flush, quantize
+        for c in (scan.sq8_scan_launches, select.launches):
+            c.reset()
+        got, t_run = mesh_answers(db, "bf", m, qs, params, MESH_SQ8_Q)
+        k3, k2 = scan.sq8_scan_launches.value, select.launches.value
+        with plain_kernels():
+            want, _ = mesh_answers(db, "bf", m, qs, params, MESH_SQ8_Q)
+        mesh_same(want, got, f"[mesh] SQ8 {m}", APPROX_TIE_RTOL, 1e-3)
+        expect = MESH_S * (MESH_SQ8_Q + 1)
+        if k3 != expect or k2 != expect:
+            raise AssertionError(f"[mesh] SQ8 {m}: K3 {k3}, K2 {k2} "
+                                 f"launches, expected {expect} each")
+        launches["sq8_scan"] += k3
+        launches["bf_select"] += k2
+        st = db.get_namespace("bf").get_index(m)._quant
+        log(f"[mesh] SQ8 {m} over {MESH_S} shards of cuda:0 "
+            f"({len(st.shard_codes)} u8 code blocks of "
+            f"{st.shard_codes[0].shape[0]} rows): {MESH_SQ8_Q} selects + "
+            f"knn_batch(64) {t_run:.2f} s equal the plain versions' answers "
+            f"(ids up to ties, ranks rtol {APPROX_TIE_RTOL}); K3 {k3}, K2 "
+            f"{k2} launches; knn_batch(64) "
+            f"{host_and_device(lambda: db.knn_batch('bf', m, qs, params))}"
+            f" on {card}")
+
+
+def mesh_ivf(card: str, db) -> None:
+    """The IVF API's rows (100,000 x 128 cosine, 1,024 lists; the "iv"
+    field of mesh_bf's database, as many rows as BF config #1's, with its
+    1,000 deletes) over MESH_S shards, every list probed: exact against
+    the float64 oracle."""
+    from reindexer_tpu_torch import IvfSearchParams
+    from reindexer_tpu_torch.index.vector import ivf
+    from reindexer_tpu_torch.ops import ivf_kernels
+    base, queries = make_ivf_data(DOCS, IVF_API_D, 16)
+    _, _, deleted = bf_config1()
+    params = IvfSearchParams(k=K, nprobe=IVF_NLIST)
+    t0 = time.perf_counter()
+    mesh_answers(db, "bf", "iv", queries[:1], params, 1)   # trains
+    t_train = time.perf_counter() - t0
+    ivf.mesh_sweeps.reset()
+    ivf_kernels.seg_scan_launches.reset()
+    got, t_run = mesh_answers(db, "bf", "iv", queries, params, 4)
+    bn = base / np.linalg.norm(base, axis=1, keepdims=True)
+    qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    sim = qn.astype(np.float64) @ bn.astype(np.float64).T
+    sim[:, deleted] = -np.inf
+    for j, (ids, ranks) in enumerate(got):
+        row = sim[j if j < 4 else j - 4]
+        top = np.argsort(-row, kind="stable")[:K]
+        if len(ids) != K or tie_violations(ids, top.tolist(),
+                                           lambda i: float(row[i]),
+                                           float(row[top[-1]]), TIE_RTOL):
+            raise AssertionError(f"[mesh] IVF answer {j} differs from the "
+                                 "float64 oracle beyond ties")
+        if not np.allclose(ranks, row[ids], rtol=0, atol=IVF_RANK_ATOL):
+            raise AssertionError(f"[mesh] IVF answer {j}: ranks off by "
+                                 f"{np.abs(ranks - row[ids]).max()}")
+    if ivf.mesh_sweeps.value != 5 or ivf_kernels.seg_scan_launches.value:
+        raise AssertionError(f"[mesh] IVF: {ivf.mesh_sweeps.value} sharded "
+                             f"sweeps, {ivf_kernels.seg_scan_launches.value}"
+                             " K6 launches")
+    log(f"[mesh] IVF over {MESH_S} shards of cuda:0, {DOCS} x "
+        f"{IVF_API_D} cosine, {IVF_NLIST} lists, nprobe {IVF_NLIST}: "
+        f"training {t_train:.2f} s; 4 selects + knn_batch(16) {t_run:.2f} s "
+        f"equal the float64 oracle (ids up to ties, ranks atol "
+        f"{IVF_RANK_ATOL}, no deleted row); the probe-mask route, no K6; "
+        f"knn_batch(16) "
+        f"{host_and_device(lambda: db.knn_batch('bf', 'iv', queries, params))}"
+        f" on {card}")
+
+
+def mesh_hnsw(card: str, dev) -> None:
+    """The HNSW API's namespace (20,000 x 96 IP) over MESH_S round-robin
+    shards: recall@10 >= HNSW_MIN_RECALL at ef 128 against the oracle."""
+    from reindexer_tpu_torch import (HnswSearchParams, IndexDef, IndexOpts,
+                                     Reindexer)
+    from reindexer_tpu_torch.parallel.context import make_mesh_context
+    rng = np.random.default_rng(1)
+    base = rng.normal(size=(HNSW_API_N, HNSW_API_D)).astype(np.float32)
+    queries = rng.normal(size=(64, HNSW_API_D)).astype(np.float32)
+    t0 = time.perf_counter()
+    db = Reindexer(device=dev, mesh=make_mesh_context(MESH_S, ["cuda:0"]))
+    db.open_namespace("hnsw", [
+        IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+        hnsw_def("vec", HNSW_API_D, HNSW_API_EFC)])
+    rows = base.tolist()
+    for i in range(HNSW_API_N):
+        db.upsert("hnsw", {"id": i, "vec": rows[i]})
+    params = HnswSearchParams(k=HNSW_K, ef=128)
+    mesh_answers(db, "hnsw", "vec", queries[:1], params, 1)  # the builds
+    t_set = time.perf_counter() - t0
+    got, t_run = mesh_answers(db, "hnsw", "vec", queries, params, 16)
+    s64, top = hnsw_oracle(base, queries, dev)
+    rec = check_hnsw(got[16:], s64, top, "[mesh] HNSW knn_batch(64)")
+    rec1 = check_hnsw(got[:16], s64[:16], top[:16], "[mesh] HNSW select")
+    if min(rec, rec1) < HNSW_MIN_RECALL:
+        raise AssertionError(f"[mesh] HNSW recall@{HNSW_K} {rec:.4f} / "
+                             f"{rec1:.4f} < {HNSW_MIN_RECALL}")
+    subs = db.get_namespace("hnsw").get_index("vec")._mesh_shards
+    fn = lambda: db.knn_batch("hnsw", "vec", queries, params)  # noqa: E731
+    fn()
+    host = median_ms(fn, 3)
+    # one call under torch.profiler, the device alone: the beam's many
+    # small launches make a long trace to process
+    per, wall_ms = profile_device(fn, 1)
+    busy = sum(per.values()) if per else float("nan")
+    log(f"[mesh] HNSW over {MESH_S} round-robin shards of cuda:0 "
+        f"({[sh.keeper.count for sh in subs]} rows), {HNSW_API_N} x "
+        f"{HNSW_API_D} IP: set-up and builds {t_set:.1f} s; recall@{HNSW_K} "
+        f"at ef 128 {rec:.4f} (knn_batch(64)), {rec1:.4f} (16 selects), "
+        f"ranks exact; 16 selects + knn_batch(64) {t_run:.2f} s; "
+        f"knn_batch(64) host {host:.3f} ms, device {busy:.4f} ms, idle "
+        f"share {1.0 - busy / wall_ms:.4f} on {card}")
+    del db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_hybrid(card: str, dev, one, launches: dict) -> None:
+    """Hybrid config #5's namespace over MESH_S shards: RRF and linear
+    ranks equal one device's (full text doc-sharded, KNN by K1 + K2). The
+    one-device database is [hybrid]'s on the CPU, which [hybrid] held
+    equal to the card's."""
+    from reindexer_tpu_torch import BruteForceSearchParams, Query
+    from reindexer_tpu_torch.ft import selector
+    from reindexer_tpu_torch.parallel.context import make_mesh_context
+    t0 = time.perf_counter()
+    mesh, qv = hybrid_db(dev, make_mesh_context(MESH_S, ["cuda:0"]))
+    t_set = time.perf_counter() - t0
+    sorts = {"RRF": "RRF()", "linear": "10 * rank(ft) + 2 * rank(vec, 50.0)"}
+
+    def hyb(sort):
+        return (Query("h").where("grp", "<", 5).match("ft", "w3 w7")
+                .where_knn("vec", qv, BruteForceSearchParams(k=100))
+                .sort(sort, desc=True).limit(FT_TOP))
+
+    text = (selector.sharded_scores, selector.dense_scores)
+    for c in text:
+        c.reset()
+    for db in (mesh, one):
+        db.select(hyb(sorts["RRF"]))      # the FT builds, the flushes
+        if db is mesh:
+            # the match's one scoring (the index caches its answer)
+            sharded, dense = (c.value for c in text)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    got = {tag: answer_of(mesh.select(hyb(q))) for tag, q in sorts.items()}
+    k1, k2 = counters["bf_scan"].value, counters["bf_select"].value
+    for tag, q in sorts.items():
+        same_answer(answer_of(one.select(hyb(q))), got[tag],
+                    f"[mesh] hybrid {tag}", rtol=1e-5, atol=0.0)
+    # the KNN of each select launches K1 and K2 once a shard a dispatch;
+    # the text was scored on the mesh (doc-sharded or the dense head)
+    if not k1 or k1 % MESH_S or k2 != k1 or sharded + dense != 1:
+        raise AssertionError(f"[mesh] hybrid: K1 {k1}, K2 {k2}, text "
+                             f"scored sharded {sharded}, dense {dense}")
+    launches["bf_scan"] += k1
+    launches["bf_select"] += k2
+    log(f"[mesh] hybrid config #5 over {MESH_S} shards of cuda:0: set-up "
+        f"{t_set:.1f} s; RRF and linear equal one"
+        f" device's (ids, ranks rtol 1e-5); the text scored doc-sharded "
+        f"({sharded} queries) or by the sharded dense head ({dense}); K1 "
+        f"{k1}, K2 {k2} launches; RRF {host_and_device(lambda: mesh.select(hyb('RRF()')))}"
+        f" on {card}")
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(card: str, dev, main_db, hyb_cpu) -> dict:
+    """[mesh]: Reindexer(mesh=make_mesh_context(S)) on the card. BF config
+    #1 over MESH_SHARDS shards of cuda:0 (and the distinct cards, when
+    there are several) equal to the one-device database; over 4 shards
+    SQ8 approx / approx_rerank, IVF over every list, HNSW and hybrid config
+    #5 (against [hybrid]'s CPU database). Returns the kernels' launches
+    over the phase."""
+    launches = {"bf_scan": 0, "bf_select": 0, "sq8_scan": 0}
+    marks = [time.perf_counter()]
+    db4 = None
+
+    def bf():
+        nonlocal db4
+        db4 = mesh_bf(card, dev, main_db, launches)
+
+    for name, fn in (("BF", bf),
+                     ("SQ8", lambda: mesh_sq8(card, db4, launches)),
+                     ("IVF", lambda: mesh_ivf(card, db4)),
+                     ("HNSW", lambda: mesh_hnsw(card, dev)),
+                     ("hybrid", lambda: mesh_hybrid(card, dev, hyb_cpu,
+                                                    launches))):
+        fn()
+        marks.append(time.perf_counter())
+        log(f"[mesh] {name}: {marks[-1] - marks[-2]:.1f} s")
+    del db4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     global HNSW_N
     if not torch.cuda.is_available():
@@ -3790,7 +4172,7 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda", 0)
     stats = phase_kernels(dev)
-    launches = phase_main_path(card)
+    launches, main_db = phase_main_path(card)
     mark("build, K1/K2, fp32 main path")
     stats.update(phase_sq8_kernels(dev))
     sq8_launches = phase_sq8_main_path(card, dev)
@@ -3811,7 +4193,7 @@ def main() -> int:
     mark("HNSW")
     phase_ft(card, dev)
     mark("full text")
-    hyb_launches, hyb, _ = phase_hybrid(card, dev)
+    hyb_launches, hyb, hyb_cpu = phase_hybrid(card, dev)
     for name, n in hyb_launches.items():
         launches[name] += n
     mark("hybrid")
@@ -3843,6 +4225,9 @@ def main() -> int:
     mark("cluster")
     count(phase_sharding(card, dev, hyb))
     mark("sharding")
+    del hyb
+    count(phase_mesh(card, dev, main_db, hyb_cpu))
+    mark("mesh")
     loaded = [m for m in ("jax", "reindexer_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"{' and '.join(loaded)} got imported")

@@ -33,8 +33,11 @@ async followers), the synchronous RAFT cluster (`reindexer_tpu_torch.cluster`,
 databases (`reindexer_tpu_torch.sharding`) and the dataclass mapping
 (`reindexer_tpu_torch.orm`) are imported by path too; followers, cluster
 nodes and shards are port `Reindexer`s, on `cuda` unless told otherwise.
-Meshes (`mesh=`, several devices) raise NotImplementedError (see
-ROADMAP.md A12).
+A database opens mesh-resident over several devices with `mesh=`
+(`reindexer_tpu_torch.parallel.context`: `make_mesh_context(S)` for S
+shards of the visible cards, `MeshContext(["cpu"] * 8)` for eight shards
+on the CPU): its vector and full-text indexes row-shard over the devices
+and every select merges the shards' top-k.
 """
 from .core.database import Reindexer
 from .core.errors import (ConflictError, LogicError, NotFoundError, ParamsError,

@@ -73,12 +73,12 @@ def hnsw_state_from_reference(state: dict) -> dict:
     top-first list of i32[cap, M], "host_vecs": f32[cap, dims], "entry",
     "max_level": int}, all numpy in both packages; this checks the shapes,
     types and link ids and copies. Load the result with
-    `HnswIndex.load_state_dict`. A mesh snapshot ("mesh_shards") is refused:
-    mesh-resident indexes are not ported yet (ROADMAP A12)."""
+    `HnswIndex.load_state_dict`. A mesh snapshot {"mesh_shards": [...]}
+    converts shard by shard (load it into an index on a mesh of as many
+    shards)."""
     if "mesh_shards" in state:
-        raise ParamsError("a mesh HNSW snapshot needs a mesh, which "
-                          "reindexer_tpu_torch does not support yet (ROADMAP "
-                          "A12)")
+        return {"mesh_shards": [hnsw_state_from_reference(st)
+                                for st in state["mesh_shards"]]}
     keeper = keeper_state_from_reference(state["keeper"])
     dims = keeper["data"].shape[1]
     levels = np.array(state["levels"], dtype=np.int32, copy=True)

@@ -9,8 +9,11 @@ full-text engine (text) build and search on that device. A DSN opens
 persistent storage as in the reference (a plain path or `builtin://`: the
 JSONL engine; `sqlite://`: the sqlite engine); on reopen the snapshot's
 documents are upserted, the ANN cache re-uploads each vector index's state
-to the device, and the WAL replays on top of it. Device meshes are not
-ported yet: `mesh=` raises NotImplementedError naming ROADMAP A12.
+to the device, and the WAL replays on top of it. `mesh=` (a
+parallel.context.MeshContext, a parallel.mesh.Mesh or a list of devices)
+opens the database mesh-resident: every mesh-aware index its namespaces
+create keeps its device state row-sharded over the mesh's devices, which
+must be of the database's device type.
 
 The reference's notes follow.
 
@@ -82,11 +85,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to "
-                               f"reindexer_tpu_torch, see ROADMAP {item}")
-
-
 class Reindexer:
     """Embedded database engine with its vector indexes on `device`.
 
@@ -101,10 +99,20 @@ class Reindexer:
 
     def __init__(self, dsn: str = "", storage=None, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
-        """dsn / storage: persistence, as in the reference. mesh
-        (multi-device) is not ported yet and raises NotImplementedError."""
+        """dsn / storage: persistence, as in the reference. mesh: a
+        MeshContext, Mesh or list of devices; the database then runs
+        mesh-resident (parallel/context.py), its shards on devices of the
+        same type as `device`."""
+        self.mesh_ctx = None
         if mesh is not None:
-            raise not_ported("mesh= (multi-device)", "A12")
+            from ..parallel.context import MeshContext
+            ctx = mesh if isinstance(mesh, MeshContext) else MeshContext(mesh)
+            if ctx.device_type != torch.device(device).type:
+                raise ParamsError(
+                    f"the mesh's devices are {ctx.device_type}, the "
+                    f"database's device is {torch.device(device).type}: "
+                    f"pass device={ctx.device_type!r}")
+            self.mesh_ctx = ctx
         self.device = resolve_device(device)
         self._namespaces: dict[str, Namespace] = {}
         self._lock = threading.RLock()
@@ -140,7 +148,7 @@ class Reindexer:
             if ns is None:
                 if name.startswith("#"):
                     raise ParamsError("'#' namespace names are reserved")
-                ns = Namespace(name, self.device)
+                ns = Namespace(name, self.device, self.mesh_ctx)
                 self._namespaces[name] = ns
                 if self.storage is not None:
                     self.storage.attach_namespace(ns)
@@ -738,7 +746,7 @@ class Reindexer:
     # ------------------------------------------------------------------
     def _load_from_storage(self) -> None:
         for name in self.storage.namespace_names():
-            ns = Namespace(name, self.device)
+            ns = Namespace(name, self.device, self.mesh_ctx)
             self._namespaces[name] = ns
             self.storage.load_namespace(ns)
             self.storage.attach_namespace(ns)

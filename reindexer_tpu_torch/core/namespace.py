@@ -2,10 +2,10 @@
 reindexer_tpu/core/namespace.py).
 
 The port's copy of the reference's host-side Namespace. It differs in two
-places: a namespace carries the torch device its vector indexes live on (in
-place of the reference's device-mesh context), and add_index builds the
-index before registering it, so an engine that is not ported yet
-(NotImplementedError) leaves the namespace unchanged.
+places: a namespace carries the torch device its vector indexes live on
+beside the reference's mesh context, and add_index builds the index before
+registering it, so an index that fails to build leaves the namespace
+unchanged.
 
 The reference's notes follow.
 
@@ -79,15 +79,17 @@ class PerfCounters:
 
 
 class Namespace:
-    def __init__(self, name: str, device: torch.device):
+    def __init__(self, name: str, device: torch.device, mesh_ctx=None):
         if not name or name.startswith("#"):
             # system namespaces are synthesized by the facade
             # (reference: system_ns_names.h)
             if not name:
                 raise ParamsError("empty namespace name")
         self.name = name
-        # the torch device of the namespace's vector indexes
+        # the torch device of the namespace's vector indexes, and the mesh
+        # (parallel/context.MeshContext) they shard over, if any
         self.device = device
+        self.mesh_ctx = mesh_ctx
         self.payload_type = PayloadType(name)
         self.indexes: list[Index] = []
         self.columns: dict[str, Column] = {}
@@ -153,7 +155,7 @@ class Namespace:
                     f"index '{idef.name}' already exists with different definition")
             if idef.opts.is_pk and self.payload_type.pk_index() is not None:
                 raise ConflictError(f"namespace '{self.name}' already has a PK index")
-            index = create_index(idef, self.device)
+            index = create_index(idef, self.device, self.mesh_ctx)
             self.payload_type.add(idef)
             self.indexes.append(index)
             if not idef.is_vector and not idef.is_composite:

@@ -22,7 +22,15 @@ Each route counts its queries (`host_merges`, `sorted_scores`,
 counts the queries the host merge would answer that go to the sorted path
 because its C++ lane is not built. The crossovers are module and class
 constants (no environment knobs), fitted on an H100 (tests/test_torch_ft.py
-ROUTE_TABLES). Mesh-resident scoring is not ported (ROADMAP A12).
+ROUTE_TABLES).
+
+Mesh-resident mode (a selector made with a MeshContext): the query's
+gather splits by doc shard on the host and every shard scores its postings
+on its device (parallel/sharded_ft.py), merged once: `sharded_scores`. As
+in the reference it replaces the host merge and the sorted path where the
+holder's capacity divides into the shards (the fielded scorer and the
+batched sorted path stay on one device), and the dense head doc-shards its
+matrices (device_dense.py).
 
 The reference's notes follow.
 
@@ -66,12 +74,7 @@ fielded_scores = Counter()   # queries scored by the fielded sum-ranks path
 dense_overflows = Counter()  # dense queries re-run elsewhere (overflow flag)
 native_fallbacks = Counter()  # host-merge queries sent to the sorted path
 #                               because the C++ lane is not built
-
-
-def _mesh_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "mesh-resident full-text scoring is not yet ported to "
-        "reindexer_tpu_torch, see ROADMAP A12 (multi-device)")
+sharded_scores = Counter()   # queries scored doc-sharded over a mesh
 
 
 _MAX_VARIANT_WORDS = 1024
@@ -111,8 +114,6 @@ class FtSelectResult:
 class FtSelector:
     def __init__(self, holder: FtDataHolder, cfg: FtFastConfig,
                  mesh_ctx=None):
-        if mesh_ctx is not None:
-            raise _mesh_not_ported()
         self.holder = holder
         self.cfg = cfg
         self.synonyms = SynonymsMap(cfg.synonyms)
@@ -121,6 +122,9 @@ class FtSelector:
         self._fp_cache: dict = {}
         # device-resident dense scorer for frequent words (device_dense.py)
         self._ddense = None
+        # mesh-resident mode (parallel/context.MeshContext): the default
+        # scorer runs doc-sharded with one merge of the shards' top-k
+        self.mesh_ctx = mesh_ctx
 
     # ------------------------------------------------------------------
     def process(self, dsl: str, normalize: bool = True) -> FtSelectResult:
@@ -258,17 +262,24 @@ class FtSelector:
         use_fm = cfg.full_match_boost != 1.0 and n_pos_terms > 0
         sum_fields = [f.name for f in q.fields if f.sum_rank]
         fielded = cfg.sum_ranks_by_fields_ratio > 0 and bool(sum_fields)
+        # mesh-resident mode: doc-sharded scoring (the reference's exact
+        # condition: not fielded, and the capacity divides into the shards)
+        sharded = (self.mesh_ctx is not None and not fielded
+                   and cap % self.mesh_ctx.n_shards == 0)
         res = None
         if not fielded:
             # frequent-word queries whose variants are all device-resident
             # run the dense device scorer (device_dense.py)
             res = self._try_dense(q, prep, merge_k, use_prox, use_fm)
-            if res is None:
+            if res is None and not sharded:
                 res = self._score_host(q, prep, merge_k=merge_k,
                                        use_prox=use_prox, use_fm=use_fm,
                                        n_pos_terms=n_pos_terms)
         out = None
-        if res is None:
+        if res is None and sharded:
+            out = self._score_sharded(q, prep, cap, merge_k, use_prox,
+                                      use_fm, n_pos_terms)
+        elif res is None:
             out = self._score_device(q, prep, cap, merge_k, use_prox,
                                      use_fm, n_pos_terms, sum_fields,
                                      fielded)
@@ -387,14 +398,83 @@ class FtSelector:
             merge_k, cfg.bm25.bm25_type, **kw)
 
     # ------------------------------------------------------------------
-    # Mesh-resident scoring (doc-sharded postings, reference
-    # parallel/sharded_ft.py) is not ported (ROADMAP A12).
+    # Mesh-resident scoring: postings doc-sharded over the mesh, the
+    # query's gather split by shard on the host, BM25 + proximity /
+    # full-match boosts computed on each shard, one merge of the shards'
+    # top-k (parallel/sharded_ft.py).
     # ------------------------------------------------------------------
-    def _mesh_pack(self):
-        raise _mesh_not_ported()
+    def _mesh_pack(self) -> dict:
+        """Doc-sharded posting arrays on the shards' devices, cached on
+        the holder (holders are immutable once built)."""
+        from .dataholder import _pad_pow2 as _cap_pow2
+        from ..parallel.sharded_ft import shard_postings
+        h, ctx = self.holder, self.mesh_ctx
+        pack = getattr(h, "_mesh_pack_cache", None)
+        if pack is not None and pack["ctx"] is ctx:
+            return pack
+        cps = _cap_pow2(max(len(h.doc_words), 1)) // ctx.n_shards
+        packed, dw, remap_shard, remap_local, _, fw = shard_postings(
+            h, ctx.n_shards, cps)
+        pack = {"ctx": ctx, "cps": cps, "remap_shard": remap_shard,
+                "remap_local": remap_local, "doc_words": ctx.shard_rows(dw),
+                "field_words": ctx.shard_rows(fw)}
+        for name, a in packed.items():
+            pack[name] = ctx.shard_rows(a)
+        h._mesh_pack_cache = pack
+        return pack
 
-    def _score_sharded(self, *args, **kwargs):
-        raise _mesh_not_ported()
+    def _score_sharded(self, q, prep, cap: int, merge_k: int,
+                       use_prox: bool, use_fm: bool, n_pos_terms: int):
+        """One query scored doc-sharded: device tensors (scores
+        f32[merge_k], docs i32[merge_k]) on the merge device."""
+        from ..parallel.sharded_ft import build_sharded_bm25
+        h, cfg, ctx = self.holder, self.cfg, self.mesh_ctx
+        pack = self._mesh_pack()
+        S, cps = ctx.n_shards, pack["cps"]
+        # the gather expanded from the posting runs, split per doc shard
+        # (stable sort by shard, then per-shard positional fill)
+        lens = prep["run_len"]
+        run = np.repeat(np.arange(len(lens)), lens)
+        g_idx = (prep["run_start"][run] + np.arange(int(lens.sum()))
+                 - np.repeat(np.cumsum(lens) - lens, lens))
+        s_of = pack["remap_shard"][g_idx]
+        counts = np.bincount(s_of, minlength=S)
+        gp = _pad_pow2(max(int(counts.max()), 1))
+        order = np.argsort(s_of, kind="stable")
+        offs = np.zeros(S, dtype=np.int64)
+        np.cumsum(counts[:-1], out=offs[1:])
+        within = np.arange(len(g_idx), dtype=np.int64) - offs[s_of[order]]
+        rows = s_of[order]
+
+        def scat(src, dtype):
+            out = np.zeros((S, gp), dtype=dtype)
+            out[rows, within] = src[order]
+            return ctx.shard_rows(out)
+
+        t_count = _pad_pow2(len(prep["terms"]), 2)
+
+        def padt(a, fill):
+            out = np.full(t_count, fill, dtype=a.dtype)
+            out[: len(a)] = a
+            return torch.from_numpy(out)
+
+        fn = build_sharded_bm25(
+            ctx, t_count, cps, merge_k, cfg.bm25.bm25_type,
+            dist_w=cfg.distance_weight, dist_b=cfg.distance_boost,
+            use_proximity=use_prox, n_terms=n_pos_terms,
+            fm_boost=cfg.full_match_boost, use_fullmatch=use_fm)
+        sharded_scores.add()
+        return fn(scat(pack["remap_local"][g_idx], np.int32),
+                  scat(prep["run_term"][run].astype(np.int32), np.int32),
+                  scat(prep["run_w"][run], np.float32),
+                  scat(prep["run_idf"][run], np.float32),
+                  pack["post_doc"], pack["post_field"], pack["post_tf"],
+                  pack["post_minpos"], pack["doc_words"],
+                  pack["field_words"], *self._fp_tensors(q),
+                  padt(prep["term_boost"], 1), padt(prep["term_lenb"], 1),
+                  padt(prep["must"], False), padt(prep["notm"], False),
+                  np.asarray([cfg.bm25.k1, cfg.bm25.b, h.avg_doc_len],
+                             np.float32))
 
     # ------------------------------------------------------------------
     # Host C++ merge for small/medium gathers (csrc/ft_native.cpp
@@ -569,7 +649,7 @@ class FtSelector:
         keeps (>= SINGLE_CACHE_MIN postings) qualify. Returns the number
         warmed.
         """
-        if limit <= 0:
+        if limit <= 0 or self.mesh_ctx is not None:
             return 0
         h = self.holder
         if getattr(h, "word_start", None) is None or len(h.word_start) < 2:
@@ -594,6 +674,11 @@ class FtSelector:
     # mergerimpl.h:95-124) move from the host stream onto the device.
     # ------------------------------------------------------------------
     def _device_dense(self):
+        if self.mesh_ctx is not None:
+            from .dataholder import _pad_pow2 as _cap_pow2
+            if (_cap_pow2(max(len(self.holder.doc_words), 1))
+                    % self.mesh_ctx.n_shards != 0):
+                return None   # tiny corpus: the capacity does not shard
         if self._ddense is None:
             self._ddense = device_dense.FtDeviceDense(self.holder, self.cfg,
                                                       self)
@@ -610,7 +695,7 @@ class FtSelector:
                 or prep["G"] < device_dense.DEVICE_MIN_SINGLE):
             return None
         dd = self._device_dense()
-        if not dd.ensure_built():
+        if dd is None or not dd.ensure_built():
             return None
         pack = dd.pack_query(prep)
         if pack is None:
@@ -654,7 +739,7 @@ class FtSelector:
         dd = None
         if any(preps[i]["G"] >= dd_min for i in live):
             dd = self._device_dense()
-            if not dd.ensure_built():
+            if dd is not None and not dd.ensure_built():
                 dd = None
         if dd is not None:
             for i in live:

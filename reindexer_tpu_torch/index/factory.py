@@ -5,7 +5,9 @@ Scalar, composite and rtree indexes are the port's copies of the host-only
 reference indexes. `vec_bf`, `hnsw` and `ivf` build the port's brute-force,
 HNSW and IVF engines on the namespace's torch device, each wrapped in an
 `ArrayVectorIndex` when the definition is an array, and `text` the port's
-full-text index, its posting arrays on the same device.
+full-text index, its posting arrays on the same device. With a mesh
+context (parallel/context.MeshContext), every mesh-aware index (the vector
+engines, full text) is switched into mesh-resident mode at creation.
 """
 from __future__ import annotations
 
@@ -18,7 +20,14 @@ from .base import Index
 from .scalar import (CompositeIndex, HashIndex, StoreIndex, TreeIndex,
                      TtlIndex, UuidIndex)
 
-def create_index(idef: IndexDef, device: torch.device) -> Index:
+def create_index(idef: IndexDef, device: torch.device, mesh_ctx=None) -> Index:
+    idx = _create(idef, device)
+    if mesh_ctx is not None and hasattr(idx, "attach_mesh"):
+        idx.attach_mesh(mesh_ctx)
+    return idx
+
+
+def _create(idef: IndexDef, device: torch.device) -> Index:
     # a composite index of any type is the host-only CompositeIndex, as in
     # the reference's _create
     if idef.is_composite:

@@ -2,7 +2,8 @@
 
 The reference's index over the port's full-text engine (reindexer_tpu_torch/
 ft/): its holders keep their device arrays on the namespace's torch device.
-Mesh-resident mode (attach_mesh) is not ported (ROADMAP A12).
+Under a mesh (attach_mesh) its selectors score doc-sharded over the mesh's
+devices (ft/selector.py, parallel/sharded_ft.py).
 
 The reference's notes follow.
 
@@ -65,11 +66,17 @@ class FullTextIndex(Index):
         self._cache: OrderedDict[str, SelectKeyResult] = OrderedDict()
         self._rows_capacity = 0
         self._selector: Optional[FtSelector] = None
+        self._mesh_ctx = None   # mesh-resident mode (attach_mesh)
 
     def attach_mesh(self, ctx) -> None:
-        raise NotImplementedError(
-            "mesh-resident full-text indexes are not yet ported to "
-            "reindexer_tpu_torch, see ROADMAP A12 (multi-device)")
+        """Mesh-resident mode: the selectors run the doc-sharded BM25 path
+        (parallel/sharded_ft.py) behind the same select_key API."""
+        if ctx is None or ctx.n_shards <= 1:
+            return
+        self._mesh_ctx = ctx
+        self._selector = None
+        for st in self._steps:
+            st["selector"] = None
 
     # --- mutation (write path stays cheap: just store text) -------------
     def upsert(self, row_id: int, values: Any) -> None:
@@ -119,7 +126,7 @@ class FullTextIndex(Index):
         holder.build(((row, texts) for row, texts in docs.items()),
                      self._rows_capacity)
         return {"holder": holder,
-                "selector": FtSelector(holder, self.cfg),
+                "selector": FtSelector(holder, self.cfg, self._mesh_ctx),
                 "rows": set(docs)}
 
     def commit(self) -> None:
@@ -135,7 +142,8 @@ class FullTextIndex(Index):
             self._steps.clear()
             self._pending.clear()
             self._owner.clear()
-            self._selector = FtSelector(self.holder, self.cfg)
+            self._selector = FtSelector(self.holder, self.cfg,
+                                         self._mesh_ctx)
             # zipf-head warm: materialize per-word top-k caches so the
             # first frequent single-term query after a rebuild is a dict
             # hit instead of a ~20 ms host stream (selector docstring)
@@ -185,7 +193,8 @@ class FullTextIndex(Index):
             return cached
         self.commit()
         if self._selector is None:
-            self._selector = FtSelector(self.holder, self.cfg)
+            self._selector = FtSelector(self.holder, self.cfg,
+                                         self._mesh_ctx)
         # steady state (no delta holder to merge, no overridden rows):
         # the selector normalizes
         if not self._steps and not self._owner and not self._pending:
@@ -213,7 +222,8 @@ class FullTextIndex(Index):
         if self._steps:
             for i, st in enumerate(self._steps):
                 if st["selector"] is None:
-                    st["selector"] = FtSelector(st["holder"], self.cfg)
+                    st["selector"] = FtSelector(st["holder"], self.cfg,
+                                                 self._mesh_ctx)
                 d = st["selector"].process(dsl, normalize=False)
                 dk = np.asarray([owner.get(int(r), i) <= i for r in d.ids],
                                 dtype=bool)

@@ -39,11 +39,18 @@ class FloatVectorIndexBase(Index):
         self.ordering = metric_ordering(self.metric)
         self.keeper = VectorKeeper(vo.dims, vo.metric, device, vo.start_size,
                                    copy_on_write=self.KEEPER_COPY_ON_WRITE)
+        self._mesh_ctx = None   # mesh-resident mode (attach_mesh)
 
     def attach_mesh(self, ctx) -> None:
-        raise NotImplementedError(
-            "mesh-resident vector indexes are not yet ported to "
-            "reindexer_tpu_torch, see ROADMAP A12 (multi-device)")
+        """Switch the index into mesh-resident mode (parallel/context.py):
+        the keeper's rows split over the mesh's shards and selects scan
+        every shard and merge the per-shard top-k, behind the same select /
+        select_batch API. Subclasses with per-shard structure (HNSW
+        subgraphs) override."""
+        if ctx is None or ctx.n_shards <= 1:
+            return
+        self._mesh_ctx = ctx
+        self.keeper.attach_mesh(ctx)
 
     # --- Index interface ------------------------------------------------
     def upsert(self, row_id: int, values: Any) -> None:

@@ -30,7 +30,13 @@ Every rung off the kernels' first choice is counted: `sq8_cert_overflows`,
 `sq8_fast_overflows`, `approx_reruns`, `overflow_reruns` and
 `geometry_scans` (selects whose k the kernels do not take).
 
-Mesh-resident mode is not ported yet (see ROADMAP).
+Mesh-resident mode (attach_mesh, parallel/sharded_knn.py): every shard
+scans its own rows, fp32 by K1 + K2, approx / approx_rerank SQ8 by K3 (S
+mode) + K2 with approx_rerank's exact re-score on the shard, and the
+per-shard top-k merge stably on the merge device; exact SQ8 takes the fp32
+path, as in the reference. A shard whose k the kernels do not take scans
+plainly (`geometry_scans`, once a select), and a flagged shard reruns its
+plain scan (`overflow_reruns` / `approx_reruns`, once a select).
 """
 from __future__ import annotations
 
@@ -50,6 +56,8 @@ from ...ops.hnsw_kernels import exact_rescore
 from ...ops.scan import SQ_EFF_BIG
 from ...ops.select import (GROUP, MARGIN, S_SLOTS, knn_scan_approx_sq8,
                            knn_scan_fused, knn_scan_fused_sq8, knn_scan_sq8)
+from ...parallel.sharded_knn import (MeshScan, kernel_geometry, shard_topk,
+                                     shard_topk_sq8)
 from .base import FloatVectorIndexBase
 from .quantization import QuantizedStore, knn_scan_quantized
 
@@ -147,6 +155,28 @@ class BruteForceIndex(FloatVectorIndexBase):
                             st.ms_dims, kp.sq_eff(), kp.data, k, self.metric,
                             eps_mode)
 
+    def _mesh_scan(self, q: torch.Tensor, k: int) -> MeshScan:
+        """Dispatch the mesh scan (parallel/sharded_knn.py) of every local
+        shard; the merge is queued, nothing waits on the device."""
+        kp, ctx, metric = self.keeper, self._mesh_ctx, self.metric
+        approx = self._quant_active() and self._quant_mode != "exact"
+        if not kernel_geometry(kp.capacity // ctx.n_shards, k):
+            geometry_scans.add()
+        if approx:
+            st, rer = self._quant, self._quant_mode == "approx_rerank"
+
+            def run(s, plain):
+                sh, (lo, alpha) = kp.shards[s], st.shard_grid[s]
+                return shard_topk_sq8(q, st.shard_codes[s], lo, alpha,
+                                      sh.data, sh.sq_eff, sh.lo, k, metric,
+                                      rer, plain)
+        else:
+            def run(s, plain):
+                sh = kp.shards[s]
+                return shard_topk(q, sh.data, sh.sq_eff, sh.lo, k, metric,
+                                  plain)
+        return MeshScan(ctx, k, ctx.local_shards, run)
+
     def _dispatch_scan(self, q: torch.Tensor, k: int):
         """(scores, ids, flag) on the device; flag is None when a plain
         scan ran (it cannot overflow)."""
@@ -210,7 +240,12 @@ class BruteForceIndex(FloatVectorIndexBase):
         q = np.stack([kp.prepare_query(v) for v in queries])
         k = min(params.k, kp.capacity)
         qd = torch.from_numpy(q).to(kp.device)
-        scores, idx, flag = self._dispatch_scan(qd, k)
+        mesh = None
+        if self._mesh_ctx is not None:
+            mesh = self._mesh_scan(qd, k)
+            scores, idx, flag = mesh.scores, mesh.ids, mesh.flag
+        else:
+            scores, idx, flag = self._dispatch_scan(qd, k)
         parts = [scores.view(torch.int32), idx]
         if flag is not None:
             parts.append(flag.view(torch.int32))
@@ -221,8 +256,15 @@ class BruteForceIndex(FloatVectorIndexBase):
             host = packed.cpu().numpy()
             s = host[:n].view(np.float32).reshape(-1, k)
             i = host[n:2 * n].reshape(-1, k)
-            if flag is not None and (host[2 * n:].view(np.float32) > 0).any():
-                s, i = self._overflow_rerun(qd, k)
+            fl = host[2 * n:].view(np.float32)
+            if flag is not None and (fl > 0).any():
+                if mesh is None:
+                    s, i = self._overflow_rerun(qd, k)
+                else:
+                    (approx_reruns if self._quant_active()
+                     and self._quant_mode != "exact"
+                     else overflow_reruns).add()
+                    s, i = mesh.rerun(fl)
             out = []
             for b in range(len(queries)):
                 keep = i[b] >= 0
@@ -254,9 +296,17 @@ class BruteForceIndex(FloatVectorIndexBase):
         # radius-only search: full fp32 scan, filter on host
         self._maybe_quantize()
         q = torch.from_numpy(kp.prepare_query(query)[None, :]).to(kp.device)
-        sq_eff = kp.sq_eff()
-        scores_d = pairwise_scores(q, kp.data, sq_eff < SQ_EFF_BIG / 2,
-                                   sq_eff, self.metric)
+        if self._mesh_ctx is not None:
+            # every shard's scores, joined in row order on the merge device
+            dev = self._mesh_ctx.merge_device
+            scores_d = torch.cat([pairwise_scores(
+                q.to(sh.data.device), sh.data,
+                sh.sq_eff < SQ_EFF_BIG / 2, sh.sq_eff, self.metric).to(dev)
+                for _, sh in kp.local_shards()], dim=1)
+        else:
+            sq_eff = kp.sq_eff()
+            scores_d = pairwise_scores(q, kp.data, sq_eff < SQ_EFF_BIG / 2,
+                                       sq_eff, self.metric)
 
         def drain_radius() -> SelectKeyResult:
             scores = scores_d[0].cpu().numpy()

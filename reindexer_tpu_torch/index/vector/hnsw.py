@@ -35,9 +35,16 @@ the keeper writes new tensors on each mutation (copy on write), so a
 streaming session keeps the graph and vectors it started on, as JAX arrays
 do for the reference. The build-only mirrors (levels, deleted) update in
 place. Nothing falls back to the CPU: every tensor lives on the index's
-device and a device error raises. The mesh mode (attach_mesh) is not ported
-yet (ROADMAP A12). RX_HNSW_NO_HEURISTIC=1 is the reference's ablation
-switch: forward selection keeps the plain top-M.
+device and a device error raises. RX_HNSW_NO_HEURISTIC=1 is the
+reference's ablation switch: forward selection keeps the plain top-M.
+
+Mesh-resident mode (attach_mesh, the reference's per-shard subgraphs): the
+row space round-robins over S sub-indexes, shard s owning namespace rows
+{r : r % S == s} as local rows r // S (not BF's contiguous blocks), each
+sub-index on the mesh's device s. A search beams every shard's graph on
+its device (parallel/sharded_hnsw.py: ef padded to a power of two of at
+least 16, expand 2, 2 * ef iterations, fp32 rows), merges the per-shard
+candidates once, and drops deleted rows at the drain.
 """
 from __future__ import annotations
 
@@ -50,7 +57,7 @@ import torch
 
 from ...core.errors import ParamsError
 from ...core.payload import IndexDef
-from ...core.type_consts import VectorMetric
+from ...core.type_consts import CondType, VectorMetric
 from ...index.base import SelectKeyResult
 from ...index.vector.params import KnnSearchParams
 
@@ -58,6 +65,7 @@ from ...ops.distance import normalize_rows, scores_to_ranks
 from ...ops.hnsw_kernels import (DataPack, beam_search_layer,
                                  exact_build_layer, exact_rescore,
                                  greedy_descend)
+from ...parallel.sharded_hnsw import shard_beam
 from .base import FloatVectorIndexBase
 
 _Q_BUCKET = 8
@@ -122,6 +130,73 @@ class HnswIndex(FloatVectorIndexBase):
             from .quantization import QuantizedStore
             self._quant = QuantizedStore(qc.left_quantile, qc.right_quantile,
                                          qc.min_elements)
+        # mesh-resident mode (attach_mesh): per-shard subgraphs
+        self._mesh_shards: Optional[list["HnswIndex"]] = None
+
+    # ------------------------------------------------------------------
+    # mesh-resident mode
+    # ------------------------------------------------------------------
+    def attach_mesh(self, ctx) -> None:
+        """One sub-index a shard, on the shard's device; rows route
+        round-robin (_mesh_route)."""
+        if ctx is None or ctx.n_shards <= 1:
+            return
+        if ctx.spans_processes:
+            raise ParamsError("a mesh HNSW index runs in one process")
+        self._mesh_ctx = ctx
+        self._mesh_shards = [HnswIndex(self.definition, dev)
+                             for dev in ctx.devices]
+
+    def _mesh_route(self, row_id: int) -> tuple["HnswIndex", int]:
+        S = len(self._mesh_shards)
+        return self._mesh_shards[row_id % S], row_id // S
+
+    def _has_entry(self) -> bool:
+        if self._mesh_shards is not None:
+            return any(sh._entry >= 0 for sh in self._mesh_shards)
+        return self._entry >= 0
+
+    def _mesh_search_async(self, queries: np.ndarray, ef: int):
+        """Beam every shard's graph (queries padded to 8 rows, ef to
+        pow2(ef, 16)), merge the candidates on the merge device, and return
+        the drain: deleted rows filtered with each shard's snapshot, then
+        a stable sort, (scores, ids) [Q, ef]."""
+        ctx, subs = self._mesh_ctx, self._mesh_shards
+        S = len(subs)
+        Q = queries.shape[0]
+        qpad = _pow2(Q, _Q_BUCKET)
+        q = np.zeros((qpad, self.dims), dtype=np.float32)
+        q[:Q] = queries
+        ef_pad = _pow2(ef, 16)
+        parts = []
+        for s, sub in enumerate(subs):
+            sub._commit()
+            sub._sync_device()
+            sc, li = shard_beam(
+                sub._upload(q), sub.keeper.data, sub.keeper.sq,
+                sub._d_links0, sub._d_upper if sub._max_level > 0 else None,
+                sub._entry, ef_pad, self.metric)
+            parts.append((sc, torch.where(li >= 0, li * S + s, -1)))
+        bs, bi = ctx.merge(parts, ef_pad)
+        packed = torch.cat([bs[:Q].contiguous().view(torch.int32),
+                            bi[:Q]], dim=1).cpu()
+        deleted = [sub._deleted for sub in subs]   # snapshot under the lock
+
+        def drain() -> tuple[np.ndarray, np.ndarray]:
+            host = packed.numpy()
+            s = host[:, :ef_pad].view(np.float32)
+            i = host[:, ef_pad:]
+            bad = i < 0
+            for sh in range(S):
+                mine = (i >= 0) & (i % S == sh)
+                bad[mine] |= deleted[sh][i[mine] // S]
+            s = np.where(bad, -np.inf, s)
+            i = np.where(bad, -1, i)
+            order = np.argsort(-s, axis=1, kind="stable")
+            return (np.take_along_axis(s, order, axis=1)[:, :ef],
+                    np.take_along_axis(i, order, axis=1)[:, :ef])
+
+        return drain
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A copy of arr on the index's device (never a view of it)."""
@@ -132,6 +207,10 @@ class HnswIndex(FloatVectorIndexBase):
     # mutation
     # ------------------------------------------------------------------
     def upsert(self, row_id: int, values) -> None:
+        if self._mesh_shards is not None:
+            sub, local = self._mesh_route(row_id)
+            sub.upsert(local, values)
+            return
         super().upsert(row_id, values)   # keeper bookkeeping
         if values is None or (hasattr(values, "__len__") and len(values) == 0):
             self._pending.pop(row_id, None)
@@ -152,6 +231,10 @@ class HnswIndex(FloatVectorIndexBase):
         self._pending[row_id] = vec
 
     def delete(self, row_id: int, values) -> None:
+        if self._mesh_shards is not None:
+            sub, local = self._mesh_route(row_id)
+            sub.delete(local, values)
+            return
         super().delete(row_id, values)
         self._pending.pop(row_id, None)
         if row_id < len(self._levels) and self._levels[row_id] >= 0:
@@ -214,6 +297,10 @@ class HnswIndex(FloatVectorIndexBase):
         self._max_level = -1
 
     def clear(self) -> None:
+        if self._mesh_shards is not None:
+            for sh in self._mesh_shards:
+                sh.clear()
+            return
         super().clear()
         cap = self.keeper.capacity
         self._levels = np.full(cap, -1, dtype=np.int32)
@@ -256,6 +343,10 @@ class HnswIndex(FloatVectorIndexBase):
         self._commit()
 
     def _commit(self) -> None:
+        if self._mesh_shards is not None:
+            for sh in self._mesh_shards:
+                sh._commit()
+            return
         self.keeper.flush()
         if not self._pending:
             return
@@ -518,7 +609,7 @@ class HnswIndex(FloatVectorIndexBase):
     # ------------------------------------------------------------------
     def select_async(self, query: np.ndarray, params: KnnSearchParams):
         self._commit()
-        if self._entry < 0:
+        if not self._has_entry():
             return lambda: SelectKeyResult.empty()
         k = params.k
         ef = getattr(params, "ef", None) or max(k or 10, 10)
@@ -553,6 +644,8 @@ class HnswIndex(FloatVectorIndexBase):
         a drain closure producing (scores, ids) [Q, ef] on the host, with
         deleted and empty slots filtered out (-inf / -1). Both come back in
         one device-to-host copy."""
+        if self._mesh_shards is not None:
+            return self._mesh_search_async(queries, ef)
         self._commit()
         self._sync_device()
         Q = queries.shape[0]
@@ -605,7 +698,7 @@ class HnswIndex(FloatVectorIndexBase):
         returns the drain closure."""
         self._commit()
         queries = np.asarray(queries, dtype=np.float32)
-        if self._entry < 0:
+        if not self._has_entry():
             res = [SelectKeyResult.empty() for _ in queries]
             return lambda: res
         k = params.k
@@ -627,7 +720,32 @@ class HnswIndex(FloatVectorIndexBase):
         return self.select_batch_async(queries, params)()
 
     # ------------------------------------------------------------------
+    def select_key(self, condition, values: tuple, **kw) -> SelectKeyResult:
+        if self._mesh_shards is not None and condition in (CondType.ANY,
+                                                           CondType.EMPTY):
+            S = len(self._mesh_shards)
+            parts = []
+            for s, sh in enumerate(self._mesh_shards):
+                sh.keeper.flush()
+                v = sh.keeper.valid
+                loc = np.flatnonzero(v if condition == CondType.ANY else ~v)
+                parts.append(loc.astype(np.int64) * S + s)
+            return SelectKeyResult(np.sort(np.concatenate(parts)))
+        return super().select_key(condition, values, **kw)
+
     def memstat(self) -> dict:
+        if self._mesh_shards is not None:
+            st = {"name": self.name, "vectors": 0, "capacity": 0,
+                  "data_size": 0, "levels": -1, "shards": 0}
+            for sh in self._mesh_shards:
+                sub = sh.memstat()
+                st["vectors"] += sub["vectors"]
+                st["capacity"] += sub["capacity"]
+                st["data_size"] += sub["data_size"]
+                st["levels"] = max(st["levels"], sub["levels"])
+                st["shards"] += 1
+            st["unique_keys_count"] = st["vectors"]
+            return st
         st = super().memstat()
         st["levels"] = int(self._max_level)
         st["data_size"] += int(self._links0.nbytes
@@ -636,7 +754,11 @@ class HnswIndex(FloatVectorIndexBase):
 
     def state_dict(self) -> dict:
         """The reference's format, all numpy: keeper, levels, deleted,
-        links0, upper (top-first), host_vecs, entry, max_level."""
+        links0, upper (top-first), host_vecs, entry, max_level; a mesh
+        index's is {"mesh_shards": [each shard's]}."""
+        if self._mesh_shards is not None:
+            return {"mesh_shards": [sh.state_dict()
+                                    for sh in self._mesh_shards]}
         self._commit()
         return {
             "keeper": self.keeper.state_dict(),
@@ -651,10 +773,17 @@ class HnswIndex(FloatVectorIndexBase):
 
     def load_state_dict(self, state: dict) -> None:
         if "mesh_shards" in state:
-            raise ParamsError(
-                "a mesh HNSW snapshot needs a mesh, and mesh-resident "
-                "indexes are not yet ported to reindexer_tpu_torch, see "
-                "ROADMAP A12")
+            if self._mesh_shards is None or \
+                    len(self._mesh_shards) != len(state["mesh_shards"]):
+                raise ParamsError(
+                    "mesh HNSW snapshot needs the same mesh attached "
+                    f"({len(state['mesh_shards'])} shards)")
+            for sh, st in zip(self._mesh_shards, state["mesh_shards"]):
+                sh.load_state_dict(st)
+            return
+        if self._mesh_shards is not None:
+            raise ParamsError("a mesh HNSW index loads only a mesh "
+                              "snapshot (\"mesh_shards\")")
         self.clear()
         self.keeper.load_state_dict(state["keeper"])
         self._levels = np.array(state["levels"], dtype=np.int32)

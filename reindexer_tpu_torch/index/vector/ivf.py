@@ -33,8 +33,11 @@ with the penalty a function of the batch, fitted to both routes measured on
 the H100 (PERF.md, "IVF router"). A failure of K6 raises: there is no
 fallback.
 
-Mesh-resident mode (scan_probed_full, probe_mask, _stage2_sharded of the
-reference) is not ported yet (ROADMAP A12).
+Mesh-resident mode (attach_mesh; parallel/sharded_ivf.py): the keeper's
+rows and the list assignment split over the shards and stage 2 is the
+probe-mask scan of each shard's rows (`_stage2_sharded`, counted by
+`mesh_sweeps`) after stage 1 on the device, as the reference's mesh
+program runs it; the segment reorder is not built.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from ...ops.ivf_kernels import (SEG_BLK, assign_lists, expand_probes,
                                 scan_reordered_masked, scan_segments,
                                 segment_topk)
 from ...ops.scan import SQ_EFF_BIG
+from ...parallel.sharded_ivf import probe_mask, shard_probed_topk
 from .base import FloatVectorIndexBase
 
 _TRAIN_FACTOR = 39      # reference: ivf_index.h:62
@@ -86,6 +90,7 @@ SEG_FIXED_MS = "0"
 segment_scans = Counter()    # stage 2 through K6 (or its plain version)
 masked_sweeps = Counter()    # stage 2 through the masked sweep
 gather_scans = Counter()     # stage 2 through the gathered candidate scan
+mesh_sweeps = Counter()      # stage 2 through the sharded probe-mask scan
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -189,16 +194,26 @@ class IvfIndex(FloatVectorIndexBase):
         nlist = min(self.nlist, len(rows))
         n_train = min(len(rows), max(_TRAIN_FACTOR * nlist, _MIN_TRAIN))
         sample = self._rng.choice(rows, size=n_train, replace=False)
-        train_d = self.keeper.data[self._rows_d(sample)]
+        train_d = self.keeper.take(sample)
         init_rows = self._rng.choice(n_train, size=nlist, replace=False)
-        init_d = train_d[self._rows_d(init_rows)]
+        init_d = train_d[self._rows_d(init_rows).to(train_d.device)]
         self.centroids = kmeans_l2(train_d, init_d, _KMEANS_ITERS)
-        assign = assign_lists(self.keeper.data, self.centroids,
-                              self.metric).cpu().numpy()
+        assign = self._assign_all()
         self._assign[:] = -1
         self._assign[rows] = assign[rows]
         self._pending_rows.clear()
         self._csr_dirty = True
+
+    def _assign_all(self) -> np.ndarray:
+        """The nearest list of every keeper row (rows not valid too)."""
+        kp = self.keeper
+        if kp.shards is None:
+            return assign_lists(kp.data, self.centroids,
+                                self.metric).cpu().numpy()
+        return np.concatenate([
+            assign_lists(sh.data, self.centroids.to(sh.data.device),
+                         self.metric).cpu().numpy()
+            for _, sh in kp.local_shards()])
 
     def rebuild_centroids(self) -> None:
         """The `rebuild_ivf_index` action: retrain from the current rows."""
@@ -218,7 +233,7 @@ class IvfIndex(FloatVectorIndexBase):
             self._pending_rows.clear()
             rows = rows[self.keeper.valid[rows]]
             if len(rows):
-                vecs_d = self.keeper.data[self._rows_d(rows)]
+                vecs_d = self.keeper.take(rows)
                 self._assign[rows] = assign_lists(
                     vecs_d, self.centroids, self.metric).cpu().numpy()
             self._csr_dirty = True
@@ -237,6 +252,15 @@ class IvfIndex(FloatVectorIndexBase):
         self._list_rows = rows[order].astype(np.int32)
         self._list_start = np.searchsorted(
             a[order], np.arange(nlist + 1)).astype(np.int64)
+        if self._mesh_ctx is not None:
+            # the assignment split like the keeper's rows; no reorder:
+            # each shard's rows hold fragments of every list
+            a = np.full(self.keeper.capacity, -1, dtype=np.int32)
+            m = min(len(a), len(self._assign))
+            a[:m] = self._assign[:m]
+            self._d_assign = self._mesh_ctx.shard_rows(a)
+            self._csr_dirty = False
+            return
         # device mirror for expand_probes (the gather route)
         rows_p = np.zeros(_pow2(max(len(self._list_rows), 1)), dtype=np.int32)
         rows_p[: len(self._list_rows)] = self._list_rows
@@ -301,6 +325,8 @@ class IvfIndex(FloatVectorIndexBase):
                 q_host: np.ndarray):
         """Stage 2 on the device: (scores, ids) tensors, or (None, None)
         when no probed list holds a row (gather route)."""
+        if self._mesh_ctx is not None:
+            return self._stage2_sharded(qd, nprobe, k)
         if k is None or _env_on("RX_IVF_GATHER"):
             gather_scans.add()
             cand, ok, totals = self._device_cands(qd, nprobe)
@@ -327,6 +353,25 @@ class IvfIndex(FloatVectorIndexBase):
         return scan_reordered_masked(
             qd, self._d_reordered, self._d_reordered_sq, self._d_perm,
             torch.from_numpy(bmask).to(self.keeper.device), kk, self.metric)
+
+    def _stage2_sharded(self, qd: torch.Tensor, nprobe: int,
+                        k: Optional[int]):
+        """Mesh-resident stage 2: stage 1 on the device, then the
+        probe-masked scan of each shard's rows and one merge of the
+        per-shard top-k (parallel/sharded_ivf.py)."""
+        mesh_sweeps.add()
+        kp, ctx = self.keeper, self._mesh_ctx
+        nlist = self.centroids.shape[0]
+        probes = probe_centroids(qd, self.centroids, min(nprobe, nlist),
+                                 self.metric)
+        sel = probe_mask(probes, nlist)
+        kk = _pow2(min(k, kp.capacity), 16) if k is not None \
+            else kp.capacity
+        parts = [shard_probed_topk(qd, sh.data, sh.sq_eff,
+                                   self._d_assign[s], sel, sh.lo, kk,
+                                   self.metric)
+                 for s, sh in kp.local_shards()]
+        return ctx.merge(parts, kk)
 
     def _host_centroids(self) -> np.ndarray:
         """Host copy of the centroid table, refreshed whenever the device

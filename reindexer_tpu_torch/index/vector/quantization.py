@@ -13,7 +13,10 @@ The quantile step stays on the host, on the JAX store's 65,536-row sample
 bit-identical to the JAX store's on the same keeper state; only the sampled
 rows leave the device. Codes (u8, one copy: the int8 scan makes them signed
 in registers), the per-dimension error bounds and the drift test are computed
-on the keeper's device. Validity is the keeper's: `sq_eff < SQ_EFF_BIG / 2`
+on the keeper's device. On a mesh keeper the codes split like its rows:
+`shard_codes[s]` (and the grid `shard_grid[s]`) on shard s's device; the
+error bounds, which only exact SQ8 reads and a mesh serves exact SQ8 from
+the fp32 rows, are not kept there. Validity is the keeper's: `sq_eff < SQ_EFF_BIG / 2`
 on the device, the host mirror `valid` on the host (removed rows keep stale
 data, so their values never decide anything).
 """
@@ -98,17 +101,22 @@ class QuantizedStore:
         self.ms_dims: Optional[torch.Tensor] = None
         self._quantized_count = 0
         self._quantized_version = -1    # the keeper's version last encoded
+        self._capacity = 0              # the keeper's capacity last encoded
+        # mesh keeper: u8[capacity / S, D] codes and (lo, alpha) per shard
+        # on its device (None for another process's shard)
+        self.shard_codes: Optional[list] = None
+        self.shard_grid: Optional[list] = None
 
     @property
     def active(self) -> bool:
-        return self.codes is not None
+        return self.codes is not None or self.shard_codes is not None
 
     def need_requantize(self, count: int, capacity: int) -> bool:
         """(reference: Quantizer::NeedRequantize; here: the count doubled or
         the capacity changed since the last quantization)"""
         if not self.active:
             return count >= self.min_elements
-        if self.codes.shape[0] != capacity:
+        if self._capacity != capacity:
             return True
         return count >= 2 * max(self._quantized_count, 1)
 
@@ -123,12 +131,23 @@ class QuantizedStore:
 
     def _encode_keeper(self, keeper) -> None:
         lo, alpha = self.lo, self.alpha
+        self._quantized_count = keeper.count
+        self._quantized_version = keeper.version
+        self._capacity = keeper.capacity
+        if keeper.shards is not None:
+            self.shard_grid = [None if sh is None else
+                               (lo.to(sh.data.device),
+                                alpha.to(sh.data.device))
+                               for sh in keeper.shards]
+            self.shard_codes = [None if sh is None else
+                                _encode(sh.data, g[0], 1.0 / g[1])
+                                for sh, g in zip(keeper.shards,
+                                                 self.shard_grid)]
+            return
         self.codes = _encode(keeper.data, lo, 1.0 / alpha)
         valid = keeper.sq_eff() < SQ_EFF_BIG / 2
         self.err_dims, self.ms_dims = _max_abs_err(keeper.data, valid,
                                                    self.codes, lo, alpha)
-        self._quantized_count = keeper.count
-        self._quantized_version = keeper.version
 
     def refresh(self, keeper) -> None:
         """Re-encode on the existing grid, unless the data drifted outside
@@ -136,14 +155,23 @@ class QuantizedStore:
         Quantizer::NeedRequantize's outlier test)."""
         keeper.flush()
         if keeper.count:
-            valid = (keeper.sq_eff() < SQ_EFF_BIG / 2)[:, None]
-            d_max = torch.where(valid, keeper.data, float("-inf")).amax(0)
-            d_min = torch.where(valid, keeper.data, float("inf")).amin(0)
+            tables = ([(keeper.data, keeper.sq_eff())]
+                      if keeper.shards is None else
+                      [(sh.data, sh.sq_eff) for _, sh in
+                       keeper.local_shards()])
+            d_max = np.full(keeper.dims, -np.inf, np.float32)
+            d_min = np.full(keeper.dims, np.inf, np.float32)
+            for data, sq_eff in tables:
+                valid = (sq_eff < SQ_EFF_BIG / 2)[:, None]
+                d_max = np.maximum(d_max, torch.where(
+                    valid, data, float("-inf")).amax(0).cpu().numpy())
+                d_min = np.minimum(d_min, torch.where(
+                    valid, data, float("inf")).amin(0).cpu().numpy())
             lo = self.lo.cpu().numpy()
             hi = lo + self.alpha.cpu().numpy() * 255.0
             span = np.maximum(hi - lo, 1e-12)
-            if (np.any(d_max.cpu().numpy() > hi + 0.05 * span)
-                    or np.any(d_min.cpu().numpy() < lo - 0.05 * span)):
+            if (np.any(d_max > hi + 0.05 * span)
+                    or np.any(d_min < lo - 0.05 * span)):
                 self.quantize(keeper)
                 return
         self._encode_keeper(keeper)
@@ -158,8 +186,7 @@ class QuantizedStore:
         sample = rows if len(rows) <= _SAMPLE_ROWS else \
             np.random.default_rng(_SAMPLE_SEED).choice(rows, _SAMPLE_ROWS,
                                                        replace=False)
-        data_s = keeper.data[torch.from_numpy(sample).to(keeper.device)]
-        data_s = data_s.cpu().numpy()
+        data_s = keeper.take(sample).cpu().numpy()
         lo = np.quantile(data_s, self.left_q, axis=0).astype(np.float32)
         hi = np.quantile(data_s, self.right_q, axis=0).astype(np.float32)
         alpha = np.maximum((hi - lo) / 255.0, 1e-12).astype(np.float32)
@@ -172,7 +199,7 @@ class QuantizedStore:
             return {"quantized": False}
         return {
             "quantized": True,
-            "quantized_size": int(self.codes.shape[0] * self.codes.shape[1]),
+            "quantized_size": int(self._capacity * self.lo.shape[0]),
         }
 
     def state_dict(self) -> dict:

@@ -16,8 +16,9 @@ resumes the traversal where the last one stopped
 construction. The session holds the link table and vectors it started on:
 the index replaces its device mirrors and the keeper its tensors on a
 commit instead of updating them in place. The query pads to 8 rows, as in
-the reference: the zero rows take part in the beam's batch-wide stop. The
-mesh session (MeshKnnStreamingSession) is not ported yet (ROADMAP A12).
+the reference: the zero rows take part in the beam's batch-wide stop. A
+mesh-sharded index streams through one session a shard, merged on the host
+(MeshKnnStreamingSession).
 """
 from __future__ import annotations
 
@@ -156,7 +157,62 @@ class KnnStreamingSession:
         return ids.astype(np.int64), scores.astype(np.float32)
 
 
+class MeshKnnStreamingSession:
+    """Streaming KNN over a mesh-sharded HNSW index: one KnnStreamingSession
+    a subgraph (hnsw.attach_mesh round-robins rows: shard s owns namespace
+    rows {r : r % S == s} as local rows r // S), merged on the host by
+    score. Batches stay disjoint (per-shard visited bitsets, disjoint id
+    spaces) and approximately rank-ordered, the single-device contract."""
+
+    def __init__(self, index, query: np.ndarray, initial_ef: int):
+        S = len(index._mesh_shards)
+        self._S = S
+        self._default = max(initial_ef, MIN_EF_BATCH)
+        self._sessions: list[tuple[int, KnnStreamingSession]] = []
+        for s, sub in enumerate(index._mesh_shards):
+            if sub.keeper.count == 0:
+                continue
+            self._sessions.append(
+                (s, KnnStreamingSession(sub, query, self._default)))
+        self._buf_ids: list[int] = []
+        self._buf_scores: list[float] = []
+        self.iters_total = 0
+
+    @property
+    def exhausted(self) -> bool:
+        return (not self._buf_ids
+                and all(sess.exhausted for _, sess in self._sessions))
+
+    def next_batch(self, batch_size: Optional[int] = None,
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        need = _clamp(batch_size) if batch_size is not None else self._default
+        # refill: one batch from every live shard while the buffer is short
+        # (buffered leftovers keep later batches disjoint)
+        if len(self._buf_ids) < need:
+            for s, sess in self._sessions:
+                if sess.exhausted:
+                    continue
+                ids, scores = sess.next_batch(batch_size)
+                self.iters_total += sess.iters_total
+                sess.iters_total = 0
+                # local row -> namespace row (hnsw._mesh_route inverse)
+                self._buf_ids.extend(int(i) * self._S + s for i in ids)
+                self._buf_scores.extend(float(x) for x in scores)
+        if not self._buf_ids:
+            return (np.empty(0, dtype=np.int64),
+                    np.empty(0, dtype=np.float32))
+        order = np.argsort(-np.asarray(self._buf_scores))
+        take, rest = order[:need], order[need:]
+        ids = np.asarray(self._buf_ids, dtype=np.int64)[take]
+        scores = np.asarray(self._buf_scores, dtype=np.float32)[take]
+        self._buf_ids = [self._buf_ids[j] for j in rest]
+        self._buf_scores = [self._buf_scores[j] for j in rest]
+        return ids, scores
+
+
 def open_streaming_session(index, query: np.ndarray, initial_ef: int):
-    """A streaming session over `index` (the reference's factory also
-    serves mesh-sharded indexes, which are not ported yet, ROADMAP A12)."""
+    """A streaming session over `index`: mesh-sharded indexes stream
+    through per-shard sessions."""
+    if getattr(index, "_mesh_shards", None):
+        return MeshKnnStreamingSession(index, query, initial_ef)
     return KnnStreamingSession(index, query, initial_ef)

@@ -4,11 +4,13 @@ Scores are "higher is better": inner product / cosine use the similarity,
 L2 the negated squared distance. `scores_to_ranks` turns a score back into
 the reference's rank value.
 
-`knn_scan` is the plain chunked scan (`torch.matmul` + `torch.topk`). The
+`knn_scan` is the plain chunked scan (`torch.matmul` + `stable_topk`). The
 engine runs it where the hand-written kernels do not apply (k > 128) and to
-rerun a query whose kernel selection overflowed. The JAX package's
-`onehot_take` / `exact_topk_blocks` are not ported: they work around slow
-gathers on the TPU, and `torch.topk` does their job here.
+rerun a query whose kernel selection overflowed. `stable_topk` keeps the
+reference's `lax.top_k` tie order (the lower row first), which
+`torch.topk` does not promise; the mesh merges use it too. The JAX
+package's `onehot_take` / `exact_topk_blocks` are not ported: they work
+around slow gathers on the TPU.
 """
 from __future__ import annotations
 
@@ -62,6 +64,36 @@ def knn_scan(queries: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
         valid)
 
 
+def stable_topk(s: torch.Tensor, k: int,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of s [Q, C] along dim 1 and their columns, best first;
+    among equal scores the lower column first, as `lax.top_k` orders them
+    (`torch.topk` leaves the order of ties unspecified, on the CPU and on
+    CUDA alike). A list whose columns run in id order within each score
+    therefore comes back in (score desc, id asc) order.
+
+    torch.topk fixes the k-th value; every column above it is taken and
+    the ties at it in column order, up to k; the k taken columns are packed
+    in column order (a cumsum and a scatter, no sort of the C columns) and
+    sorted stably by value."""
+    n_q, n = s.shape
+    if k >= n:
+        vals, cols = torch.sort(s, dim=1, descending=True, stable=True)
+        return vals, cols
+    kth = torch.topk(s, k, dim=1).values[:, -1:]
+    eq = s == kth
+    room = k - (s > kth).sum(dim=1, keepdim=True, dtype=torch.int32)
+    take = (s > kth) | (eq & (torch.cumsum(eq, dim=1, dtype=torch.int32)
+                              <= room))
+    slot = torch.where(take, torch.cumsum(take, dim=1) - 1, k)
+    cols = torch.zeros((n_q, k + 1), dtype=torch.int64, device=s.device)
+    cols.scatter_(1, slot, torch.arange(n, device=s.device).expand(n_q, n))
+    cols = cols[:, :k]
+    vals, order = torch.sort(torch.gather(s, 1, cols), dim=1,
+                             descending=True, stable=True)
+    return vals, torch.gather(cols, 1, order)
+
+
 def chunked_topk(n: int, q: torch.Tensor, k: int, chunk: int, scores_of,
                  valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked top-k loop of knn_scan over n rows: scores_of(rows) ->
@@ -76,10 +108,12 @@ def chunked_topk(n: int, q: torch.Tensor, k: int, chunk: int, scores_of,
         end = min(start + chunk, n)
         s = scores_of(slice(start, end))
         s = s.masked_fill(~valid[None, start:end], float("-inf"))
-        loc_s, loc_i = torch.topk(s, min(k, end - start), dim=1)
+        loc_s, loc_i = stable_topk(s, min(k, end - start))
+        # the running best holds rows below `start`, in (score desc, row
+        # asc) order, so the stable merge keeps the lower row among ties
         merged_s = torch.cat([best_s, loc_s], dim=1)
         merged_i = torch.cat([best_i, loc_i + start], dim=1)
-        best_s, sel = torch.topk(merged_s, k, dim=1)
+        best_s, sel = stable_topk(merged_s, k)
         best_i = torch.gather(merged_i, 1, sel)
     best_i = torch.where(best_s > float("-inf"), best_i, -1)
     return best_s, best_i.to(torch.int32)

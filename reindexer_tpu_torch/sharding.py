@@ -3,7 +3,7 @@ the port's databases (host only). The shards are port `Reindexer`s the
 caller builds, each on its own torch device (one card may hold them all);
 the scatter runs the shards' selects from a thread pool, so on the card
 several threads launch the kernels at once. The device row-sharding plane
-(reindexer_tpu/parallel/) is not ported yet (ROADMAP A12).
+is reindexer_tpu_torch/parallel/ (`Reindexer(mesh=...)`).
 
 It differs in one place: a reshard moves each row with its float vectors.
 The reference reads the rows to move with a plain select, which leaves

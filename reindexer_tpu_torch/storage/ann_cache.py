@@ -63,6 +63,14 @@ def _flatten(state: dict, prefix: str = "") -> tuple[dict, dict]:
                 meta[k]["__array_list__"].append(akey)
         elif isinstance(v, list) and not v:
             meta[k] = {"__array_list__": []}
+        elif isinstance(v, list) and isinstance(v[0], dict):
+            # a mesh HNSW index's per-shard states (the reference's cache
+            # cannot write these: its _flatten raises on them)
+            meta[k] = {"__dict_list__": []}
+            for i, d in enumerate(v):
+                sub_a, sub_m = _flatten(d, f"{key}#{i}/")
+                arrays.update(sub_a)
+                meta[k]["__dict_list__"].append(sub_m)
         else:
             meta[k] = v
     return arrays, meta
@@ -77,6 +85,8 @@ def _unflatten(meta: dict, arrays) -> dict:
             out[k] = arrays[v["__array__"]]
         elif isinstance(v, dict) and "__array_list__" in v:
             out[k] = [arrays[a] for a in v["__array_list__"]]
+        elif isinstance(v, dict) and "__dict_list__" in v:
+            out[k] = [_unflatten(m, arrays) for m in v["__dict_list__"]]
         else:
             out[k] = v
     return out
@@ -102,6 +112,9 @@ class AnnStorageCache:
             return
         if rows is not None:
             state = compact_rows(state, rows)
+        if state is None:
+            self.drop(ns_name, index.name)
+            return
         os.makedirs(self.dir, exist_ok=True)
         arrays, meta = _flatten(state)
         meta["__stamp__"] = {"items_count": items_count,
@@ -158,7 +171,14 @@ class AnnStorageCache:
 
 def _rows_match(index, state: dict) -> bool:
     """Whether the state's rows that hold a vector are the rows of `index`
-    that hold one now, after the snapshot's upserts."""
+    that hold one now, after the snapshot's upserts (shard by shard for a
+    mesh HNSW snapshot)."""
+    if "mesh_shards" in state:
+        subs = getattr(index, "_mesh_shards", None) or []
+        if len(subs) != len(state["mesh_shards"]):
+            return False
+        return all(_rows_match(sub, st)
+                   for sub, st in zip(subs, state["mesh_shards"]))
     index.keeper.flush()
     return np.array_equal(np.flatnonzero(index.keeper.valid), np.flatnonzero(
         np.asarray(state["keeper"]["valid"])))
@@ -169,10 +189,14 @@ def compact_rows(state: dict, rows: np.ndarray) -> dict:
     snapshot renumbers them on reload: the live document rows `rows`
     (ascending) become 0..len(rows)-1, and the rows of an HNSW graph's
     deleted nodes, which its searches still traverse, follow them in
-    order. A state whose rows have no gap comes back as it is."""
+    order. A state whose rows have no gap comes back as it is. A mesh HNSW
+    state with gaps is None (not cached): renumbering would move rows
+    between its round-robin shards."""
     rows = np.asarray(rows, dtype=np.int64)
     if not len(rows) or rows[-1] == len(rows) - 1:
         return state
+    if "mesh_shards" in state:
+        return None
     keeper = state["keeper"]
     n_old = len(keeper["valid"])
     order = rows

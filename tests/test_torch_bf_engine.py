@@ -255,7 +255,8 @@ def test_state_dict_round_trip_and_any_empty():
 
 def test_mass_ties_rerun_through_knn_scan():
     """16384 identical vectors tie every block max: K2 overflows, the drain
-    reruns the batch through knn_scan and counts it."""
+    reruns the batch through knn_scan and counts it; the rerun keeps the
+    reference's tie order, the lower rows first (ROADMAP C1)."""
     ix = _bf_index(dims=8)
     one = np.random.default_rng(12).normal(size=(1, 8)).astype(np.float32)
     ix.keeper.bulk_load(np.tile(one, (16384, 1)))
@@ -265,7 +266,7 @@ def test_mass_ties_rerun_through_knn_scan():
     assert brute_force.overflow_reruns.value == 1
     for b, res in enumerate(outs):
         want = ((q[b] - one[0]) ** 2).sum()
-        assert len(res.ids) == 32 and (res.ids >= 0).all()
+        assert res.ids.tolist() == list(range(32))
         np.testing.assert_allclose(res.ranks, want, rtol=RTOL, atol=ATOL)
 
 
@@ -333,8 +334,20 @@ def test_not_ported_options_and_missing_device_raise(tmp_path):
     db = port.Reindexer(str(tmp_path / "db"), device="cpu")
     assert isinstance(db.storage, FileStorage)
     db.close()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.Reindexer(mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_mesh_engines.py): a CPU mesh opens
+    # on a CPU database and shards its vector indexes; a mesh on another
+    # device type than the database's is refused
+    from reindexer_tpu_torch.parallel.context import MeshContext
+    mdb = port.Reindexer(mesh=MeshContext(["cpu"] * 2), device="cpu")
+    mdb.open_namespace("vecs", _defs("l2", 4))
+    for i in range(5):
+        mdb.upsert("vecs", {"id": i, "v": [float(i)] * 4, "grp": 0})
+    res = mdb.select(Query("vecs").where_knn(
+        "v", np.full(4, 3.2, np.float32), KnnSearchParams(k=2)))
+    assert [d["id"] for d in res.docs()] == [3, 4]
+    assert len(mdb.get_namespace("vecs").get_index("v").keeper.shards) == 2
+    with pytest.raises(port.ParamsError, match="device"):
+        port.Reindexer(mesh=MeshContext(["cpu"] * 2), device="cuda")
     with pytest.raises(RuntimeError, match="cuda:1000"):
         port.Reindexer(device="cuda:1000")
     with pytest.raises(ValueError, match="cuda or cpu"):

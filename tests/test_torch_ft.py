@@ -908,18 +908,30 @@ def test_route_constants_are_the_fit_of_the_h100_table():
 # --- 7. the mesh seams ------------------------------------------------------
 
 def test_mesh_seams_raise_naming_a12():
+    """The mesh seams are ported (tests/test_torch_mesh_engines.py): a
+    `text` index takes a mesh, a selector on a 4-shard CPU mesh scores
+    doc-sharded (sharded_scores) with the reference's single-device ranks,
+    and its dense head doc-shards its matrices."""
     from reindexer_tpu_torch.index.text import FullTextIndex
+    from reindexer_tpu_torch.parallel.context import MeshContext
+    ctx = MeshContext(["cpu"] * 4)
     idx = FullTextIndex(port.IndexDef("ft", "text", "string"), CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        idx.attach_mesh(object())
-    _, psel = make_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        FtSelector(psel.holder, psel.cfg, mesh_ctx=object())
-    for call in (psel._mesh_pack, psel._score_sharded,
-                 port_dd._build_mesh_score_fn,
-                 psel._device_dense()._dispatch_mesh):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            call()
+    idx.attach_mesh(ctx)
+    assert idx._mesh_ctx is ctx
+    rsel, psel = make_pair()
+    msel = FtSelector(psel.holder, psel.cfg, mesh_ctx=ctx)
+    pack = msel._mesh_pack()
+    assert len(pack["post_doc"]) == 4
+    port_sel.sharded_scores.reset()
+    for dsl in ("w0 w1", "w3 -w4", "+w5 +w6"):
+        want, got = rsel.process(dsl), msel.process(dsl)
+        assert set(got.ids.tolist()) == set(want.ids.tolist()), dsl
+        np.testing.assert_allclose(np.sort(got.ranks), np.sort(want.ranks),
+                                   rtol=1e-4, atol=1e-4)
+    assert port_sel.sharded_scores.value > 0
+    dd = msel._device_dense()
+    if dd.ensure_built():
+        assert dd._mesh is ctx and len(dd.S) == 4
 
 
 # --- 8. the public API: the cases of tests/test_fulltext.py ----------------

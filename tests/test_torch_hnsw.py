@@ -567,16 +567,39 @@ def test_state_converter_checks_shapes():
     out_of_range = dict(state, links0=state["links0"] + 10 ** 6)
     with pytest.raises(port.ParamsError):
         hnsw_state_from_reference(out_of_range)
-    with pytest.raises(port.ParamsError, match="A12"):
-        hnsw_state_from_reference({"mesh_shards": [state]})
-    with pytest.raises(port.ParamsError, match="A12"):
+    # a mesh snapshot converts shard by shard, and loads only into an
+    # index on a mesh of as many shards
+    mesh_state = hnsw_state_from_reference({"mesh_shards": [state]})
+    np.testing.assert_array_equal(mesh_state["mesh_shards"][0]["links0"],
+                                  state["links0"])
+    with pytest.raises(port.ParamsError, match="mesh"):
         p.load_state_dict({"mesh_shards": [state]})
 
 
 def test_mesh_is_not_ported():
-    ix = HnswIndex(hnsw_def(port, 4, "L2"), CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ix.attach_mesh(object())
+    """The mesh mode is ported (tests/test_torch_mesh_engines.py): on a
+    2-shard CPU mesh the rows round-robin over two sub-indexes, and a
+    mesh snapshot of the reference's loads into it and answers as the
+    reference does."""
+    from reindexer_tpu_torch.parallel.context import MeshContext
+    R = _ref()
+    from reindexer_tpu.parallel.context import make_mesh_context
+    rng = np.random.default_rng(21)
+    base = rng.normal(size=(300, 8)).astype(np.float32)
+    r = R.Hnsw(hnsw_def(R.pkg, 8, "L2"))
+    r.attach_mesh(make_mesh_context(2))
+    ix = HnswIndex(hnsw_def(port, 8, "L2"), CPU)
+    ix.attach_mesh(MeshContext(["cpu"] * 2))
+    assert len(ix._mesh_shards) == 2
+    for i in range(300):
+        r.upsert(i, base[i])
+    r.commit()
+    ix.load_state_dict(hnsw_state_from_reference(r.state_dict()))
+    assert ix._mesh_shards[1].keeper.count == 150
+    for q in rng.normal(size=(4, 8)).astype(np.float32):
+        params = (HnswSearchParams(k=5, ef=32),
+                  R.pkg.HnswSearchParams(k=5, ef=32))
+        assert_same(r.select(q, params[1]), ix.select(q, params[0]))
 
 
 # --- 4. the reference's cases on the port's engine -------------------------

@@ -15,8 +15,10 @@ the storage, network, server, client, events and CLI modules, reopens a
 persistent HNSW namespace from its ANN cache, imports the replication,
 cluster, cluster transport, sharding, ORM and gRPC service modules (the
 last without grpcio), syncs a follower over a `LeaderChannel`, runs a
-KNN select over two shards, and checks that no JAX module got loaded, nor
-the JAX package. The static check reads every `*.py` of
+KNN select over two shards, imports the mesh modules (parallel/ and the
+multi-process worker), opens a 4-shard CPU mesh database with vec_bf, IVF,
+HNSW and text fields and selects on each, and checks that no JAX module
+got loaded, nor the JAX package. The static check reads every `*.py` of
 the port, and chip_smoke.py, for an `import reindexer_tpu` or `from
 reindexer_tpu` naming the JAX package.
 """
@@ -202,6 +204,35 @@ assert [d["id"] for d in res.docs()] == want, (res.docs(), want)
 assert len(sr.shards[0].select(Query("vecs"))) == 1
 sr.close()
 assert "grpc" not in sys.modules
+
+import reindexer_tpu_torch.parallel.mesh
+import reindexer_tpu_torch.parallel.sharded_ft
+import reindexer_tpu_torch.parallel.sharded_hnsw
+import reindexer_tpu_torch.parallel.sharded_ivf
+import reindexer_tpu_torch.parallel.sharded_knn
+import reindexer_tpu_torch.tools.multihost_worker
+from reindexer_tpu_torch.parallel.context import MeshContext
+mdb = Reindexer(mesh=MeshContext(["cpu"] * 4), device="cpu")
+mdb.open_namespace("m", [
+    IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+    IndexDef("body", "text", "string"),
+    IndexDef("bf", "vec_bf", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2)),
+    IndexDef("iv", "ivf", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, centroids_count=4)),
+    IndexDef("hn", "hnsw", vector_opts=FloatVectorOpts(
+        dims=8, metric=VectorMetric.L2, m=8))])
+for i in range(50):
+    mdb.upsert("m", {"id": i, "body": f"w{i % 5} x", "bf": base[i].tolist(),
+                     "iv": base[i].tolist(), "hn": base[i].tolist()})
+for field, params in (("bf", KnnSearchParams(k=3)),
+                      ("iv", IvfSearchParams(k=3, nprobe=4)),
+                      ("hn", HnswSearchParams(k=3, ef=32))):
+    res = mdb.select(Query("m").where_knn(field, base[7], params))
+    assert [d["id"] for d in res.docs()] == want, (field, res.docs())
+assert len(mdb.get_namespace("m").get_index("bf").keeper.shards) == 4
+res = mdb.select(Query("m").match("body", "w2"))
+assert sorted(d["id"] for d in res.docs()) == list(range(2, 50, 5))
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "reindexer_tpu"))
