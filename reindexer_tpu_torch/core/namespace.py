@@ -35,6 +35,7 @@ from typing import Any, Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .errors import ConflictError, NotFoundError, ParamsError, QueryError
 from .payload import (Column, IndexDef, PayloadType, get_json_path)
 from .type_consts import CondType, FieldType, IndexType
@@ -62,7 +63,6 @@ class PerfCounters:
     def __init__(self) -> None:
         self.counts: dict[str, int] = {}
         self.total_us: dict[str, float] = {}
-        self.last_sec: dict[str, float] = {}
 
     def hit(self, op: str, dt_sec: float) -> None:
         self.counts[op] = self.counts.get(op, 0) + 1
@@ -76,6 +76,29 @@ class PerfCounters:
                 "total_avg_latency_us": self.total_us[op] / max(cnt, 1),
             }
         return out
+
+
+# upserts while tracing is on: how many, and ns inside the indexes' upserts
+upserts = tracing.counter("ns.upserts")
+upsert_index_ns = tracing.counter("ns.upsert_index_ns")
+
+
+class _TimedLock:
+    """A namespace's lock whose taking is an `ns.lock_wait` span: the KNN
+    paths take it so while tracing is on."""
+
+    __slots__ = ("lock",)
+
+    def __init__(self, lock):
+        self.lock = lock
+
+    def acquire(self) -> None:
+        tracing.acquire(self.lock, "ns.lock_wait")
+
+    __enter__ = acquire
+
+    def __exit__(self, kind, exc, tb) -> None:
+        self.lock.release()
 
 
 class Namespace:
@@ -97,6 +120,7 @@ class Namespace:
         self.free_rows: list[int] = []
         self.meta: dict[str, str] = {}
         self.lock = threading.RLock()
+        self.timed_lock = _TimedLock(self.lock)
         self.version = 0          # bumped on each mutation (reader snapshots)
         self.schema_version = 0   # bumped on index add/drop (metadata caches)
         # incremental XOR of per-item checksums (reference: repl_.dataHash,
@@ -138,6 +162,9 @@ class Namespace:
         try:
             yield
         finally:
+            if n and tracing.on:
+                self.timed_lock.acquire()
+                n -= 1
             for _ in range(n):
                 self.lock.acquire()
 
@@ -296,10 +323,15 @@ class Namespace:
                     self.items.append(None)
             else:
                 self._delete_row_from_indexes(row)
+            timed = tracing.on
+            index_ns = 0
             for idef, index in zip(self.payload_type.indexes, self.indexes):
                 vals = self._extract_values(doc, idef)
                 self._set_column(idef, row, vals)
+                t = time.perf_counter_ns() if timed else 0
                 index.upsert(row, vals)
+                if timed:
+                    index_ns += time.perf_counter_ns() - t
             if self.items[row] is not None:
                 self.data_hash ^= _item_hash(self.items[row])
             self.data_hash ^= _item_hash(doc)
@@ -308,6 +340,9 @@ class Namespace:
             if self.wal_hooks:
                 self._wal("upsert", {"row": row, "doc": doc})
             self.perf.hit("updates", time.perf_counter() - t0)
+            if timed:
+                upserts.add()
+                upsert_index_ns.add(index_ns)
             return row
 
     def _delete_row_from_indexes(self, row: int) -> None:

@@ -54,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops._build import Counter
+from .. import tracing
 from . import device_dense
 from .config import FtFastConfig
 from .dataholder import FtDataHolder
@@ -67,14 +67,21 @@ from .mmseg import segmenter_for_config
 from .tokenizer import tokenize
 from .variants import SynonymsMap, kblayout_variants, translit_variants
 
-host_merges = Counter()      # queries answered by the host C++ merge
-sorted_scores = Counter()    # queries scored by the device sorted path
-dense_scores = Counter()     # queries answered by the device dense route
-fielded_scores = Counter()   # queries scored by the fielded sum-ranks path
-dense_overflows = Counter()  # dense queries re-run elsewhere (overflow flag)
-native_fallbacks = Counter()  # host-merge queries sent to the sorted path
-#                               because the C++ lane is not built
-sharded_scores = Counter()   # queries scored doc-sharded over a mesh
+# queries answered by the host C++ merge
+host_merges = tracing.counter("ft.host_merges")
+# queries scored by the device sorted path
+sorted_scores = tracing.counter("ft.sorted_scores")
+# queries answered by the device dense route
+dense_scores = tracing.counter("ft.dense_scores")
+# queries scored by the fielded sum-ranks path
+fielded_scores = tracing.counter("ft.fielded_scores")
+# dense queries re-run elsewhere (overflow flag)
+dense_overflows = tracing.counter("ft.dense_overflows")
+# host-merge queries sent to the sorted path because the C++ lane is not
+# built
+native_fallbacks = tracing.counter("ft.native_fallbacks")
+# queries scored doc-sharded over a mesh
+sharded_scores = tracing.counter("ft.sharded_scores")
 
 
 _MAX_VARIANT_WORDS = 1024

@@ -8,11 +8,13 @@ descending).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ... import tracing
 from ...core.errors import ParamsError
 from ...core.payload import IndexDef
 from ...core.type_consts import CondType, RankOrdering
@@ -21,6 +23,28 @@ from ...index.vector.params import KnnSearchParams
 
 from ...ops.distance import metric_ordering
 from .keeper import VectorKeeper
+
+dispatches = tracing.counter("engine.dispatches")
+
+
+def engine_boundary(select_batch_async):
+    """A vector engine's `select_batch_async`, counted in
+    `engine.dispatches`; while tracing is on, the dispatch (entry to
+    return) is an `engine.dispatch` span and the drain it returns an
+    `engine.drain` span."""
+    @functools.wraps(select_batch_async)
+    def dispatch(self, queries, params):
+        dispatches.add()
+        if not tracing.on:
+            return select_batch_async(self, queries, params)
+        with tracing.span("engine.dispatch", queries=len(queries)):
+            drain = select_batch_async(self, queries, params)
+
+        def traced_drain():
+            with tracing.span("engine.drain"):
+                return drain()
+        return traced_drain
+    return dispatch
 
 
 class FloatVectorIndexBase(Index):

@@ -45,12 +45,12 @@ import os
 import numpy as np
 import torch
 
+from ... import tracing
 from ...core.errors import ParamsError
 from ...core.payload import IndexDef
 from ...index.base import SelectKeyResult
 from ...index.vector.params import KnnSearchParams
 
-from ...ops._build import Counter
 from ...ops.distance import knn_scan, pairwise_scores, scores_to_ranks
 from ...ops.hnsw_kernels import exact_rescore
 from ...ops.scan import SQ_EFF_BIG
@@ -58,14 +58,19 @@ from ...ops.select import (GROUP, MARGIN, S_SLOTS, knn_scan_approx_sq8,
                            knn_scan_fused, knn_scan_fused_sq8, knn_scan_sq8)
 from ...parallel.sharded_knn import (MeshScan, kernel_geometry, shard_topk,
                                      shard_topk_sq8)
-from .base import FloatVectorIndexBase
+from .base import FloatVectorIndexBase, engine_boundary
 from .quantization import QuantizedStore, knn_scan_quantized
 
-geometry_scans = Counter()      # selects with a k the kernels do not take
-overflow_reruns = Counter()     # fp32 K2 overflows rerun by knn_scan
-approx_reruns = Counter()       # approx SQ8 overflows rerun by K3 + K2
-sq8_cert_overflows = Counter()  # exact SQ8 cert-eps overflows (-> fast)
-sq8_fast_overflows = Counter()  # exact SQ8 fast-eps overflows (-> fp32)
+# selects with a k the kernels do not take
+geometry_scans = tracing.counter("bf.geometry_scans")
+# fp32 K2 overflows rerun by knn_scan
+overflow_reruns = tracing.counter("bf.overflow_reruns")
+# approx SQ8 overflows rerun by K3 + K2
+approx_reruns = tracing.counter("bf.approx_reruns")
+# exact SQ8 cert-eps overflows (-> fast)
+sq8_cert_overflows = tracing.counter("bf.sq8_cert_overflows")
+# exact SQ8 fast-eps overflows (-> fp32)
+sq8_fast_overflows = tracing.counter("bf.sq8_fast_overflows")
 
 QUANT_MODES = ("exact", "approx", "approx_rerank")
 
@@ -222,6 +227,7 @@ class BruteForceIndex(FloatVectorIndexBase):
         s, i = self._scan_plain(q, k)
         return s.cpu().numpy(), i.cpu().numpy()
 
+    @engine_boundary
     def select_batch_async(self, queries: np.ndarray,
                            params: KnnSearchParams):
         """Dispatch one scan for the whole batch and return the drain
@@ -253,7 +259,7 @@ class BruteForceIndex(FloatVectorIndexBase):
         n = len(queries) * k
 
         def drain() -> list[SelectKeyResult]:
-            host = packed.cpu().numpy()
+            host = tracing.device_read(packed, "engine.device_wait").numpy()
             s = host[:n].view(np.float32).reshape(-1, k)
             i = host[n:2 * n].reshape(-1, k)
             fl = host[2 * n:].view(np.float32)

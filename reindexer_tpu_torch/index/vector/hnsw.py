@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import tracing
 from ...core.errors import ParamsError
 from ...core.payload import IndexDef
 from ...core.type_consts import CondType, VectorMetric
@@ -66,7 +67,7 @@ from ...ops.hnsw_kernels import (DataPack, beam_search_layer,
                                  exact_build_layer, exact_rescore,
                                  greedy_descend)
 from ...parallel.sharded_hnsw import shard_beam
-from .base import FloatVectorIndexBase
+from .base import FloatVectorIndexBase, engine_boundary
 
 _Q_BUCKET = 8
 _CHUNK_START = 32
@@ -347,6 +348,15 @@ class HnswIndex(FloatVectorIndexBase):
             for sh in self._mesh_shards:
                 sh._commit()
             return
+        with (tracing.span("hnsw.commit", rows=len(self._pending))
+              if tracing.on and self._pending else tracing.OFF):
+            self._insert_pending()
+
+    def _insert_pending(self) -> None:
+        """Flush the keeper and insert the pending rows into the graph:
+        every chunk's device work queued, then the host links each chunk
+        (`hnsw.build.link` while tracing is on, its waits for the device
+        `hnsw.build.wait`)."""
         self.keeper.flush()
         if not self._pending:
             return
@@ -363,8 +373,10 @@ class HnswIndex(FloatVectorIndexBase):
             i += chunk
             chunk = min(chunk * 2, _CHUNK_MAX)
         staged = self._dispatch_chunks(plans)
-        for batch, levels, layer_out in staged:
-            self._link_chunk(batch, levels, layer_out)
+        with (tracing.span("hnsw.build.link") if tracing.on
+              else tracing.OFF):
+            for batch, levels, layer_out in staged:
+                self._link_chunk(batch, levels, layer_out)
         self._pending.clear()
 
     def _pack(self, for_search: bool) -> DataPack:
@@ -486,7 +498,8 @@ class HnswIndex(FloatVectorIndexBase):
         neighbors (waits for the chunk's results)."""
         B = len(rows)
         for lc, connect_here, sel in layer_out:
-            sel_np = sel.cpu().numpy()[:B][connect_here]
+            sel_np = tracing.device_read(
+                sel, "hnsw.build.wait").numpy()[:B][connect_here]
             self._connect_selected(lc, [rows[j] for j in connect_here],
                                    sel_np)
         for j, r in enumerate(rows):
@@ -666,8 +679,9 @@ class HnswIndex(FloatVectorIndexBase):
             # exact fp32 re-rank of the quantized beam's results
             bs, bi = exact_rescore(qd, self.keeper.data, self.keeper.sq,
                                    bi, bs, self.metric)
-        packed = torch.cat([bs[:Q].contiguous().view(torch.int32),
-                            bi[:Q].to(torch.int32)], dim=1).cpu()
+        packed = tracing.device_read(
+            torch.cat([bs[:Q].contiguous().view(torch.int32),
+                       bi[:Q].to(torch.int32)], dim=1), "engine.device_wait")
         deleted = self._deleted      # snapshot under the caller's lock
 
         def drain() -> tuple[np.ndarray, np.ndarray]:
@@ -692,6 +706,7 @@ class HnswIndex(FloatVectorIndexBase):
         deleted/invalid rows filtered out (-inf/-1)."""
         return self._search_batch_async(queries, ef)()
 
+    @engine_boundary
     def select_batch_async(self, queries: np.ndarray,
                            params: KnnSearchParams):
         """Batched search (descent + layer-0 beam for all queries at once);

@@ -48,12 +48,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import tracing
 from ...core.payload import IndexDef
 from ...core.type_consts import VectorMetric
 from ...index.base import SelectKeyResult
 from ...index.vector.params import KnnSearchParams
 
-from ...ops._build import Counter
 from ...ops.distance import scores_to_ranks
 from ...ops.ivf_kernels import (SEG_BLK, assign_lists, expand_probes,
                                 kmeans_l2, probe_centroids, scan_lists_batch,
@@ -61,7 +61,7 @@ from ...ops.ivf_kernels import (SEG_BLK, assign_lists, expand_probes,
                                 segment_topk)
 from ...ops.scan import SQ_EFF_BIG
 from ...parallel.sharded_ivf import probe_mask, shard_probed_topk
-from .base import FloatVectorIndexBase
+from .base import FloatVectorIndexBase, engine_boundary
 
 _TRAIN_FACTOR = 39      # reference: ivf_index.h:62
 _KMEANS_ITERS = 20
@@ -87,10 +87,14 @@ SWEEP_NS_PER_ROW = 3.920
 SWEEP_NS_PER_ROW_QUERY = 0.1105
 SEG_FIXED_MS = "0"
 
-segment_scans = Counter()    # stage 2 through K6 (or its plain version)
-masked_sweeps = Counter()    # stage 2 through the masked sweep
-gather_scans = Counter()     # stage 2 through the gathered candidate scan
-mesh_sweeps = Counter()      # stage 2 through the sharded probe-mask scan
+# stage 2 through K6 (or its plain version)
+segment_scans = tracing.counter("ivf.segment_scans")
+# stage 2 through the masked sweep
+masked_sweeps = tracing.counter("ivf.masked_sweeps")
+# stage 2 through the gathered candidate scan
+gather_scans = tracing.counter("ivf.gather_scans")
+# stage 2 through the sharded probe-mask scan
+mesh_sweeps = tracing.counter("ivf.mesh_sweeps")
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -504,6 +508,7 @@ class IvfIndex(FloatVectorIndexBase):
                ) -> SelectKeyResult:
         return self.select_async(query, params)()
 
+    @engine_boundary
     def select_batch_async(self, queries: np.ndarray,
                            params: KnnSearchParams):
         """Batched dispatch/drain split (see select_async)."""

@@ -34,7 +34,9 @@ What the port keeps, and how:
     uint32 words' through a numpy view.
 
 `beam_steps` counts the beam iterations (the JAX loop's `iters`, summed),
-`host_syncs` the host reads of a loop's stop flag.
+`host_syncs` the host reads of a loop's stop flag, `graph_captures` the
+CUDA graphs of a block captured. While tracing is on, each stop-flag read
+is an `hnsw.stop_read` span.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..core.type_consts import VectorMetric
-from ._build import Counter
 
 NEG_INF = float("-inf")
 _F32_LOWEST = float(torch.finfo(torch.float32).min)
@@ -53,8 +55,12 @@ _GRAPH_CTX: dict = {}   # device index -> _GraphCtx
 SYNC_EVERY = 8          # beam steps between two host reads of the stop flag
 DESCENT_HOPS = 8        # greedy hops a layer runs before its stop is read
 
-beam_steps = Counter()  # beam iterations run (the JAX loop's iters)
-host_syncs = Counter()  # host reads of a loop's stop flag
+# beam iterations run (the JAX loop's iters)
+beam_steps = tracing.counter("hnsw.beam_steps")
+# host reads of a loop's or a descent's stop flag
+host_syncs = tracing.counter("hnsw.host_syncs")
+# CUDA graphs of a beam block captured
+graph_captures = tracing.counter("hnsw.graph_captures")
 
 
 def _score_gathered(q: torch.Tensor, vecs: torch.Tensor, vec_sq: torch.Tensor,
@@ -233,6 +239,7 @@ def _capture(fn, ctx: _GraphCtx, device: torch.device):
             graph.capture_end()
     torch.cuda.current_stream(device).wait_stream(ctx.stream)
     ctx.last = graph      # keeps the pool alive for the next capture
+    graph_captures.add()
     return graph
 
 
@@ -274,7 +281,9 @@ def _beam_loop(queries, pack, links, w_s, w_ids, c_s, c_ids, visited,
     with ctx.lock if ctx is not None else contextlib.nullcontext():
         while True:
             host_syncs.add()
-            flag = torch.stack([state[6].to(torch.int32), state[5]]).cpu()
+            flag = tracing.device_read(
+                torch.stack([state[6].to(torch.int32), state[5]]),
+                "hnsw.stop_read")
             if not flag[0]:
                 beam_steps.add(int(flag[1]))
                 return tuple(state[:6])
@@ -436,7 +445,7 @@ def greedy_descend(
         if hops >= max_hops:
             break
         host_syncs.add()
-        moved = torch.stack(moved).cpu()
+        moved = tracing.device_read(torch.stack(moved), "hnsw.stop_read")
         if not moved.any():
             break
         j = int(moved.to(torch.int8).argmax())

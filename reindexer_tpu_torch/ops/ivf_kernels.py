@@ -32,12 +32,13 @@ import torch
 from ..core.type_consts import VectorMetric
 
 from . import _build
+from .. import tracing
 from .scan import SENT, SENT_HALF, _cuda_or_cpu
 
 SEG_BLK = 128          # rows per segment block (list starts align to this)
 NEG_INF = float("-inf")
 
-seg_scan_launches = _build.Counter()     # K6 ivf_seg_scan
+seg_scan_launches = tracing.counter("kernels.ivf_seg_scan")  # K6
 
 
 def _l2_scores(dots: torch.Tensor, base_sq: torch.Tensor,

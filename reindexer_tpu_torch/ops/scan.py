@@ -36,6 +36,7 @@ import torch
 from ..core.type_consts import VectorMetric
 
 from . import _build
+from .. import tracing
 
 SQ_EFF_BIG = 1e30     # sq_eff of an invalid row
 SENT = -1e30          # the SQ8 scans clamp scores here
@@ -43,9 +44,9 @@ SENT_HALF = -5e29     # scores at or below are invalid
 BLK = 64              # rows per block max
 SQ8_I8_MAX_D = 132000  # K5's |sum| <= D * 127 * 128 stays below 2^31
 
-launches = _build.Counter()               # K1 bf_scan
-sq8_scan_launches = _build.Counter()      # K3 sq8_scan
-sq8_i8_scan_launches = _build.Counter()   # K5 sq8_i8_scan
+launches = tracing.counter("kernels.bf_scan")                # K1
+sq8_scan_launches = tracing.counter("kernels.sq8_scan")       # K3
+sq8_i8_scan_launches = tracing.counter("kernels.sq8_i8_scan")  # K5
 
 
 def score_factor(metric: VectorMetric) -> float:

@@ -49,6 +49,7 @@ import torch
 from ..core.type_consts import VectorMetric
 
 from . import _build
+from .. import tracing
 from .scan import (BLK, SENT_HALF, _cuda_or_cpu, bf_scan, score_factor,
                    sq8_i8_scan, sq8_scan)
 
@@ -59,8 +60,8 @@ SELECT_MAX_Q = 4096    # K4's queries a launch (it stages a byte a query
 #                        for each block it scores)
 FAST_EPS_SIGMA = 12.0  # tail multiplier of the "fast" eps bound
 
-launches = _build.Counter()              # K2 bf_select
-sq8_select_launches = _build.Counter()   # K4 sq8_select
+launches = tracing.counter("kernels.bf_select")                # K2
+sq8_select_launches = tracing.counter("kernels.sq8_select")    # K4
 
 
 def _emit(top_s: torch.Tensor, top_i: torch.Tensor, k: int,

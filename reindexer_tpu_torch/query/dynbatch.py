@@ -52,13 +52,14 @@ def enabled() -> bool:
 
 
 class PendingQuery:
-    __slots__ = ("query", "result", "error", "done")
+    __slots__ = ("query", "result", "error", "done", "dispatch")
 
     def __init__(self, query):
         self.query = query
         self.result = None
         self.error: Optional[BaseException] = None
         self.done = False
+        self.dispatch = 0     # the serving dynbatch.dispatch span (tracing)
 
 
 class KnnBatcher:
