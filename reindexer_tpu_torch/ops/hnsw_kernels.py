@@ -15,16 +15,27 @@ What the port keeps, and how:
     the step leaves every tensor as it was and `it` does not move. The
     host reads the flag once every SYNC_EVERY steps, so a search makes
     about iters / SYNC_EVERY + 1 host syncs, and the extra steps after the
-    stop change nothing. `it` is the JAX loop's count exactly. On the card
-    every block of SYNC_EVERY steps after the first replays a CUDA graph of
-    one block, captured once a search: the loop is one small kernel after
-    another, and the graph spares the host's launch cost of each.
+    stop change nothing. `it` is the JAX loop's count exactly.
   - Greedy descent per layer stops, as in JAX, when no query of the batch
     improved at a hop or after max_hops hops. A hop leaves a query that did
     not improve where it is, so hops past that stop change nothing: each
     layer runs a budget of hops, one host read checks every layer's stop
     at once, and a layer that was still moving runs again from its start
     with twice the budget.
+  - CUDA graphs on the card. The beam and the descent are one small
+    kernel after another, so the host's launch cost is most of a search.
+    Each device keeps a cache of captured graphs (_GraphCtx), keyed by all
+    a graph bakes in (_graph_key): the shapes, the metric, the pack kind,
+    the constants, and the address and layout of the tensors read in place.
+    A search of a key seen before copies its inputs into the entry's
+    buffers and replays: one graph for the descent's first pass, one for
+    the beam's set-up and first block, one for each later block; the host
+    reads stay where they are, between replays. An entry is captured once
+    on a miss, and released when a tensor its key names is gone (a rebuilt
+    link table, a grown keeper, new SQ8 codes) or past CACHE_ENTRIES. The
+    graphs share the device's pool: everything a graph writes that outlives
+    its replay is in the entry's own buffers. The CPU runs the same code
+    eagerly.
   - Ties. `lax.top_k` ranks equal values by the lower index first, and
     `jnp.argsort` is stable; here both are a stable sort (`_top_k`,
     `torch.argsort(stable=True)`), on the CPU and on the card alike.
@@ -34,14 +45,16 @@ What the port keeps, and how:
     uint32 words' through a numpy view.
 
 `beam_steps` counts the beam iterations (the JAX loop's `iters`, summed),
-`host_syncs` the host reads of a loop's stop flag, `graph_captures` the
-CUDA graphs of a block captured. While tracing is on, each stop-flag read
-is an `hnsw.stop_read` span.
+`host_syncs` the host reads of a loop's or a descent's stop flag,
+`graph_captures` the CUDA graphs captured (two on a beam's cache miss, one
+on a descent's, none on a hit). While tracing is on, each stop-flag read is
+an `hnsw.stop_read` span.
 """
 from __future__ import annotations
 
-import contextlib
 import threading
+import weakref
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -54,12 +67,14 @@ _F32_LOWEST = float(torch.finfo(torch.float32).min)
 _GRAPH_CTX: dict = {}   # device index -> _GraphCtx
 SYNC_EVERY = 8          # beam steps between two host reads of the stop flag
 DESCENT_HOPS = 8        # greedy hops a layer runs before its stop is read
+CACHE_ENTRIES = 16      # cached search graphs a device keeps
 
 # beam iterations run (the JAX loop's iters)
 beam_steps = tracing.counter("hnsw.beam_steps")
 # host reads of a loop's or a descent's stop flag
 host_syncs = tracing.counter("hnsw.host_syncs")
-# CUDA graphs of a beam block captured
+# CUDA graphs captured: a descent's first pass, a beam's first block (with
+# its set-up), a beam's later block
 graph_captures = tracing.counter("hnsw.graph_captures")
 
 
@@ -206,15 +221,19 @@ def _beam_step(queries, pack, links, w_s, w_ids, c_s, c_ids, visited, go,
 
 
 class _GraphCtx:
-    """Per device: the side stream the beam loops capture on, the graph
-    memory pool their graphs share, the newest graph (a pool lives only
-    while one of its graphs does) and a lock, since one loop at a time may
-    capture and replay from the shared pool."""
+    """Per device: the side stream graphs are captured on, the memory pool
+    they share, the newest graph, the cache of entries (key -> _Entry,
+    least recently used first) and a lock. A search on the card holds the
+    lock from the copy of its inputs into an entry to the copy of its
+    results out of it, and enqueues all of it on the device's current
+    stream, so one search at a time runs graphs of the pool and uses an
+    entry's buffers."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.last = None
+        self.entries: OrderedDict = OrderedDict()
         self.lock = threading.Lock()
 
 
@@ -238,35 +257,107 @@ def _capture(fn, ctx: _GraphCtx, device: torch.device):
         finally:
             graph.capture_end()
     torch.cuda.current_stream(device).wait_stream(ctx.stream)
-    ctx.last = graph      # keeps the pool alive for the next capture
+    # a pool whose graphs are all gone takes no new capture: the newest
+    # graph keeps it alive when the cache releases the others
+    ctx.last = graph
     graph_captures.add()
     return graph
 
 
-def _beam_loop(queries, pack, links, w_s, w_ids, c_s, c_ids, visited,
-               ef: int, expand: int, max_iters: int, metric: VectorMetric):
-    """The best-first expansion loop of one-shot and streaming searches
-    (W and C both ef wide). Returns the final state and the iteration count
-    (an int32 tensor); the inputs are not modified.
+def _graphs(ctx: _GraphCtx, device: torch.device, *fns) -> list:
+    """CUDA graphs of fns, after one run of the first on the capture
+    stream: what a kernel sets up at its first use (its module, a library
+    handle's workspace) is set up outside a capture."""
+    ctx.stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(ctx.stream):
+        fns[0]()
+    return [_capture(fn, ctx, device) for fn in fns]
 
-    The loop runs in blocks of SYNC_EVERY steps, with one host read of the
-    stop flag after each. On the card the first block runs as it is and
-    the later ones replay a CUDA graph of one block: the same kernels,
-    without the host's launch cost for each."""
-    dev = queries.device
+
+def _shapes(*tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _graph_key(kind: str, sizes: tuple, metric: VectorMetric,
+               pack: DataPack, *tensors) -> tuple:
+    """Everything a graph of `kind` bakes in: its sizes (the shapes of the
+    inputs it copies in, and its integer arguments), the metric, the pack
+    kind, SYNC_EVERY and DESCENT_HOPS, and the identity (device, dtype,
+    address, shape, strides) of every read-only tensor it reads in
+    place: the pack's and `tensors`."""
+    ident = tuple(None if t is None else
+                  (str(t.device), t.dtype, t.data_ptr(), tuple(t.shape),
+                   t.stride())
+                  for t in (pack.data, pack.data_sq, pack.lo, pack.alpha,
+                            *tensors))
+    return (kind, sizes, metric, pack.quantized, SYNC_EVERY,
+            DESCENT_HOPS) + ident
+
+
+class _Entry:
+    """One key's graphs, the static buffers they read (ins) and write
+    (outs), allocated outside any graph pool, and the constants they read.
+    Of the tensors its key names it keeps weak references only: once one
+    of them is gone, the entry is stale."""
+
+    def __init__(self, tensors, ins, outs, consts, graphs):
+        self.refs = [weakref.ref(t) for t in tensors if t is not None]
+        self.ins, self.outs, self.consts = ins, outs, consts
+        self.graphs = graphs
+
+    def stale(self) -> bool:
+        return any(r() is None for r in self.refs)
+
+
+def _entry(ctx: _GraphCtx, key: tuple, build) -> _Entry:
+    """key's entry, made by build() on a miss; ctx.lock is held. Stale
+    entries are released first, and past CACHE_ENTRIES the least recently
+    used."""
+    for k in [k for k, e in ctx.entries.items() if e.stale()]:
+        del ctx.entries[k]
+    e = ctx.entries.pop(key, None)
+    if e is None:
+        e = build()
+    ctx.entries[key] = e
+    while len(ctx.entries) > CACHE_ENTRIES:
+        ctx.entries.popitem(last=False)
+    return e
+
+
+def _beam_program(kind: str, ins: list, pack, links, ef: int, expand: int,
+                  max_iters: int, metric: VectorMetric):
+    """The beam loop's state [w_s, w_ids, c_s, c_ids, visited, it, go],
+    made from ins = [queries, *inputs], two functions over it in place
+    (`restart` sets it from ins again, `block` runs SYNC_EVERY steps) and
+    the constants they read. The inputs are the entry ids ("layer") or W
+    and C, both ef wide, and the visited bitset ("resume")."""
+    dev = ins[0].device
     K = expand * links.shape[1]
     pop = torch.zeros((1, ef), dtype=torch.bool, device=dev)
     pop[:, :expand] = True
     earlier = torch.ones((K, K), dtype=torch.bool, device=dev).tril(-1)
+
+    def start():
+        if kind == "layer":
+            return _beam_init(ins[0], pack, links.shape[0], ins[1], ef, ef,
+                              metric)
+        return ins[1:]
+
     it = torch.zeros((), dtype=torch.int32, device=dev)
-    state = [w_s.clone(), w_ids.clone(), c_s.clone(), c_ids.clone(),
-             visited.clone(), it, _active(w_s, c_s, ef, it, max_iters)]
+    state = [x.clone() for x in start()]
+    state += [it, _active(state[0], state[2], ef, it, max_iters)]
+
+    def restart():
+        for dst, src in zip(state, start()):
+            dst.copy_(src)
+        it.zero_()
+        state[6].copy_(_active(state[0], state[2], ef, it, max_iters))
 
     def block():
         w_s, w_ids, c_s, c_ids, visited, it, go = state
         for _ in range(SYNC_EVERY):
             w_s, w_ids, c_s, c_ids = _beam_step(
-                queries, pack, links, w_s, w_ids, c_s, c_ids, visited, go,
+                ins[0], pack, links, w_s, w_ids, c_s, c_ids, visited, go,
                 pop, earlier, expand, metric)
             it += go
             go = _active(w_s, c_s, ef, it, max_iters)
@@ -274,30 +365,74 @@ def _beam_loop(queries, pack, links, w_s, w_ids, c_s, c_ids, visited,
             dst.copy_(src)
         state[6].copy_(go)
 
-    block()
-    ctx = _graph_ctx(dev) if dev.type == "cuda" else None
-    graph = None
+    return state, restart, block, (pop, earlier)
+
+
+def _run_blocks(state: list, first, block) -> None:
+    """Run first, then block while the device flag `go` says so, with one
+    host read of the stop flag after each."""
+    first()
     last_it = -1
-    with ctx.lock if ctx is not None else contextlib.nullcontext():
-        while True:
-            host_syncs.add()
-            flag = tracing.device_read(
-                torch.stack([state[6].to(torch.int32), state[5]]),
-                "hnsw.stop_read")
-            if not flag[0]:
-                beam_steps.add(int(flag[1]))
-                return tuple(state[:6])
-            if int(flag[1]) <= last_it:
-                # a live block always moves `it`; a block that did not
-                # would loop here for ever
-                raise RuntimeError(f"beam loop stalled at step {last_it}")
-            last_it = int(flag[1])
-            if ctx is None:
-                block()
-                continue
-            if graph is None:
-                graph = _capture(block, ctx, dev)
-            graph.replay()
+    while True:
+        host_syncs.add()
+        flag = tracing.device_read(
+            torch.stack([state[6].to(torch.int32), state[5]]),
+            "hnsw.stop_read")
+        if not flag[0]:
+            beam_steps.add(int(flag[1]))
+            return
+        if int(flag[1]) <= last_it:
+            # a live block always moves `it`; a block that did not would
+            # loop here for ever
+            raise RuntimeError(f"beam loop stalled at step {last_it}")
+        last_it = int(flag[1])
+        block()
+
+
+def _beam_loop(kind: str, queries, pack, links, inputs: tuple, ef: int,
+               expand: int, max_iters: int, metric: VectorMetric,
+               n_out: int):
+    """The best-first expansion loop of one-shot ("layer") and streaming
+    ("resume") searches, W and C both ef wide (_beam_program). Returns the
+    first n_out of (w_s, w_ids, c_s, c_ids, visited, it), `it` the
+    iteration count (an int32 tensor); the inputs are not modified.
+
+    The loop runs in blocks of SYNC_EVERY steps, with one host read of the
+    stop flag after each. On the CPU it runs as it is. On the card it
+    replays the graphs of the device's cache entry for its key: the inputs
+    are copied into the entry's buffers, one graph sets the state and runs
+    the first block, another runs each later block, and the results are
+    copied out."""
+    dev = queries.device
+    if dev.type != "cuda":
+        state, _, block, _ = _beam_program(kind, [queries, *inputs], pack,
+                                           links, ef, expand, max_iters,
+                                           metric)
+        _run_blocks(state, block, block)
+        return tuple(state[:n_out])
+    ctx = _graph_ctx(dev)
+    key = _graph_key("beam." + kind,
+                     _shapes(queries, *inputs) + (ef, expand, max_iters),
+                     metric, pack, links)
+
+    def build() -> _Entry:
+        ins = [x.clone() for x in (queries, *inputs)]
+        state, restart, block, consts = _beam_program(
+            kind, ins, pack, links, ef, expand, max_iters, metric)
+
+        def first():
+            restart()
+            block()
+        return _Entry((pack.data, pack.data_sq, pack.lo, pack.alpha, links),
+                      ins, state, consts, _graphs(ctx, dev, first, block))
+
+    with ctx.lock:
+        e = _entry(ctx, key, build)
+        for dst, src in zip(e.ins, (queries, *inputs)):
+            dst.copy_(src)
+        first, block = e.graphs
+        _run_blocks(e.outs, first.replay, block.replay)
+        return tuple(x.clone() for x in e.outs[:n_out])
 
 
 def beam_search_layer(
@@ -314,12 +449,8 @@ def beam_search_layer(
 
     Returns (w_scores f32[Q, ef], w_ids i32[Q, ef]) best-first; empty
     slots are (-inf, -1)."""
-    w_s, w_ids, c_s, c_ids, visited = _beam_init(
-        queries, pack, links.shape[0], entry_ids, ef, ef, metric)
-    w_s, w_ids, _, _, _, _ = _beam_loop(
-        queries, pack, links, w_s, w_ids, c_s, c_ids, visited,
-        ef, expand, max_iters, metric)
-    return w_s, w_ids
+    return _beam_loop("layer", queries, pack, links, (entry_ids,), ef,
+                      expand, max_iters, metric, 2)
 
 
 def beam_begin_stream(
@@ -368,8 +499,9 @@ def beam_search_resume(
     Returns (w_s, w_ids, c_s, c_ids, visited, iters)."""
     w_s, w_ids = _fit_width(w_seed_s, w_seed_i, ef)
     c_s, c_ids = _fit_width(c_s, c_ids, ef)
-    return _beam_loop(queries, pack, links, w_s, w_ids, c_s, c_ids, visited,
-                      ef, expand, max_iters, metric)
+    return _beam_loop("resume", queries, pack, links,
+                      (w_s, w_ids, c_s, c_ids, visited), ef, expand,
+                      max_iters, metric, 6)
 
 
 def exact_rescore(queries: torch.Tensor, data: torch.Tensor,
@@ -413,28 +545,28 @@ def _descend_layer(queries, pack, links, cur, cur_s, hops: int,
     return cur, cur_s, imp.any()
 
 
-def greedy_descend(
-    queries: torch.Tensor,      # f32[Q, D]
-    pack: DataPack,             # fp32 rows or SQ8 codes
-    links_stack: torch.Tensor,  # i32[Lu, N, m] upper layers, TOP first
-    entry: torch.Tensor,        # i32[Q]
-    metric: VectorMetric, max_hops: int = 64,
-) -> torch.Tensor:
-    """Greedy descent through the upper layers (reference: the level > 0
-    loop of searchKnn, hnswalg.h:1988). On each layer every query takes the
-    best neighbor while it improves; the layer ends when no query improved
-    at a hop, or after max_hops hops. Returns i32[Q] layer-0 entries.
-
-    Each layer runs DESCENT_HOPS hops (hops after a query stopped leave it
-    where it is), then one host read checks every layer; from the first
-    layer where some query still moved, the descent runs again with twice
-    the hops, up to max_hops, where the JAX loop stops anyway."""
-    Lu = links_stack.shape[0]
-    cur = entry
+def _entry_scores(queries, pack, cur, metric: VectorMetric):
     v = cur >= 0
-    cur_s = _score_ids(queries, pack, torch.where(v, cur, 0)[:, None],
-                       metric)[:, 0].masked_fill(~v, NEG_INF)
-    hops, first = min(DESCENT_HOPS, max_hops), 0
+    return _score_ids(queries, pack, torch.where(v, cur, 0)[:, None],
+                      metric)[:, 0].masked_fill(~v, NEG_INF)
+
+
+def _descent_pass(queries, pack, links_stack, entry, hops: int,
+                  metric: VectorMetric):
+    """`hops` hops on each layer of links_stack from the entries. Returns
+    (cur, cur_s, moved), moved a list of each layer's device flag."""
+    cur, cur_s, moved = entry, _entry_scores(queries, pack, entry, metric), []
+    for layer in range(links_stack.shape[0]):
+        cur, cur_s, m = _descend_layer(queries, pack, links_stack[layer],
+                                       cur, cur_s, hops, metric)
+        moved.append(m)
+    return cur, cur_s, moved
+
+
+def _descend_from(queries, pack, links_stack, cur, cur_s, first: int,
+                  hops: int, max_hops: int, metric: VectorMetric):
+    """The descent's loop from layer `first` (greedy_descend)."""
+    Lu = links_stack.shape[0]
     while first < Lu:
         starts, moved = [], []
         for layer in range(first, Lu):
@@ -453,6 +585,78 @@ def greedy_descend(
         cur, cur_s = starts[j]
         hops = min(2 * hops, max_hops)
     return cur
+
+
+def _descend_graphed(queries, pack, links_stack, entry, hops: int,
+                     read: bool, metric: VectorMetric):
+    """The descent's first pass on the card, a replay of the device's
+    cache entry for its key; with `read`, its moved flags read on the host.
+    Returns (cur, moved or None)."""
+    dev = queries.device
+    ctx = _graph_ctx(dev)
+    key = _graph_key("descent", _shapes(queries, entry) + (hops,), metric,
+                     pack, links_stack)
+
+    def build() -> _Entry:
+        ins = [queries.clone(), entry.clone()]
+        outs = [torch.empty_like(entry),
+                torch.empty(links_stack.shape[0], dtype=torch.bool,
+                            device=dev)]
+
+        def run():
+            cur, _, moved = _descent_pass(ins[0], pack, links_stack, ins[1],
+                                          hops, metric)
+            outs[0].copy_(cur)
+            outs[1].copy_(torch.stack(moved))
+        return _Entry((pack.data, pack.data_sq, pack.lo, pack.alpha,
+                       links_stack), ins, outs, (), _graphs(ctx, dev, run))
+
+    with ctx.lock:
+        e = _entry(ctx, key, build)
+        for dst, src in zip(e.ins, (queries, entry)):
+            dst.copy_(src)
+        e.graphs[0].replay()
+        cur = e.outs[0].clone()
+        if not read:
+            return cur, None
+        host_syncs.add()
+        return cur, tracing.device_read(e.outs[1], "hnsw.stop_read")
+
+
+def greedy_descend(
+    queries: torch.Tensor,      # f32[Q, D]
+    pack: DataPack,             # fp32 rows or SQ8 codes
+    links_stack: torch.Tensor,  # i32[Lu, N, m] upper layers, TOP first
+    entry: torch.Tensor,        # i32[Q]
+    metric: VectorMetric, max_hops: int = 64,
+) -> torch.Tensor:
+    """Greedy descent through the upper layers (reference: the level > 0
+    loop of searchKnn, hnswalg.h:1988). On each layer every query takes the
+    best neighbor while it improves; the layer ends when no query improved
+    at a hop, or after max_hops hops. Returns i32[Q] layer-0 entries.
+
+    Each layer runs DESCENT_HOPS hops (hops after a query stopped leave it
+    where it is), then one host read checks every layer; from the first
+    layer where some query still moved, the descent runs again with twice
+    the hops, up to max_hops, where the JAX loop stops anyway. On the card
+    the first pass replays a graph of the device's cache; a pass again
+    runs as it is, from where the first pass entered that layer."""
+    hops = min(DESCENT_HOPS, max_hops)
+    if queries.device.type != "cuda":
+        return _descend_from(queries, pack, links_stack, entry,
+                             _entry_scores(queries, pack, entry, metric), 0,
+                             hops, max_hops, metric)
+    if links_stack.shape[0] == 0:
+        return entry
+    cur, moved = _descend_graphed(queries, pack, links_stack, entry, hops,
+                                  hops < max_hops, metric)
+    if moved is None or not moved.any():
+        return cur
+    j = int(moved.to(torch.int8).argmax())
+    cur, cur_s, _ = _descent_pass(queries, pack, links_stack[:j], entry,
+                                  hops, metric)
+    return _descend_from(queries, pack, links_stack, cur, cur_s, j,
+                         min(2 * hops, max_hops), max_hops, metric)
 
 
 def heuristic_select(

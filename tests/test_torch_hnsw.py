@@ -17,14 +17,20 @@ runs as its own tests run it). Tolerances, with their reasons:
     heuristic may decide a link otherwise), recall@10 within 0.02 of the
     reference's at ef 16, 32 and 64.
 The `cuda` tests run the engine on the card against the engine on the CPU
-and skip without one; the JAX package is imported lazily, so they run
-where JAX is absent:
+(searches that replay cached CUDA graphs too, after mutations, in
+streaming sessions and on a one-card mesh; the graphs bit-identical to
+their eager chains of kernels) and skip without one; the JAX package is
+imported lazily, so they run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_hnsw.py
 """
 import functools
+import gc
+import sys
+import threading
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -253,6 +259,37 @@ def test_greedy_descend_matches_reference(metric, quantized):
                                  R.jnp.asarray(entry), rm, max_hops=2)
     got = pk.greedy_descend(t(q), pp, t(stack), t(entry), pm, max_hops=2)
     np.testing.assert_array_equal(got.numpy(), n(capped))
+
+
+@pytest.mark.parametrize("change", ["nothing", "links", "queries", "metric",
+                                    "pack", "sync_every"])
+def test_graph_key_changes_with_what_a_graph_bakes_in(change, monkeypatch):
+    """The key of a cached search graph: the same shapes and tensors give
+    the same key (queries and entries are copied in, so only their shapes
+    count); another links tensor, another padded Q, another metric, another
+    vector table or another block length gives another."""
+    data, sq = torch.zeros(300, 16), torch.zeros(300)
+    links = torch.zeros((300, 8), dtype=torch.int32)
+
+    def key(q, links, metric, pack):
+        ents = torch.zeros((q.shape[0], 1), dtype=torch.int32)
+        return pk._graph_key("beam.layer",
+                             pk._shapes(q, ents) + (128, 2, 256), metric,
+                             pack, links)
+    first = key(torch.zeros(8, 16), links, VectorMetric.L2,
+                pk.DataPack(data, sq))
+    args = dict(q=torch.ones(8, 16), links=links, metric=VectorMetric.L2,
+                pack=pk.DataPack(data, sq))
+    other = {"links": ("links", links.clone()),
+             "queries": ("q", torch.zeros(64, 16)),
+             "metric": ("metric", VectorMetric.INNER_PRODUCT),
+             "pack": ("pack", pk.DataPack(data.clone(), sq))}
+    if change in other:
+        name, value = other[change]
+        args[name] = value
+    if change == "sync_every":
+        monkeypatch.setattr(pk, "SYNC_EVERY", pk.SYNC_EVERY * 2)
+    assert (key(**args) == first) == (change == "nothing")
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -866,10 +903,10 @@ def _need_cuda():
                     "there")
 
 
-def _cpu_and_cuda(quant=False, n_rows=3000, dims=32):
+def _cpu_and_cuda(quant=False, n_rows=3000, dims=32, metric="INNER_PRODUCT"):
     rng = np.random.default_rng(15)
     base = rng.normal(size=(n_rows, dims)).astype(np.float32)
-    defn = hnsw_def(port, dims, "INNER_PRODUCT", m=16, efc=64, quant=quant)
+    defn = hnsw_def(port, dims, metric, m=16, efc=64, quant=quant)
     gpu = HnswIndex(defn, torch.device("cuda"))
     for i in range(n_rows):
         gpu.upsert(i, base[i])
@@ -948,3 +985,187 @@ def test_cuda_streaming_session_survives_a_commit():
     assert not set(ids_a.tolist()) & set(ids_b.tolist())
     assert all(0 <= i < 300 for i in ids_b.tolist())
     assert list(sc_b) == sorted(sc_b, reverse=True)
+
+
+def _deltas(counters, before):
+    return tuple(c.value - b for c, b in zip(counters, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [8, 64])
+@pytest.mark.parametrize("metric,quant", [("L2", False),
+                                          ("INNER_PRODUCT", False),
+                                          ("INNER_PRODUCT", True)],
+                         ids=["l2", "ip", "sq8"])
+def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q):
+    """Searches of one shape replay the graphs the first one captured: with
+    a new query set each time, the same ids as the CPU engine (near-ties
+    aside), ranks within rtol 1e-4, the same beam steps and host reads; and
+    the descent (with one hop of budget too, so that layers run again) and
+    the beam bit-identical to their eager chains of kernels on the card."""
+    _need_cuda()
+    cpu, gpu, _, rng = _cpu_and_cuda(quant, metric=metric)
+    p = HnswSearchParams(k=10, ef=128)
+    counters = (pk.graph_captures, pk.beam_steps, pk.host_syncs)
+    for rnd in range(3):
+        qs = rng.normal(size=(n_q, 32)).astype(np.float32)
+        counts = []
+        for ix in (cpu, gpu):
+            before = [c.value for c in counters]
+            res = ix.select_batch(qs, p)
+            counts.append(_deltas(counters, before))
+            if ix is cpu:
+                want = res
+        for a, b in zip(want, res):
+            assert_same(a, b)
+        assert counts[0][1:] == counts[1][1:] and counts[0][1] > 0, counts
+        # a miss captures the descent's pass and the beam's two blocks
+        assert counts[1][0] == (3 if rnd == 0 else 0), counts
+
+    pack, links, m = gpu._pack(for_search=True), gpu._d_links0, gpu.metric
+    q = torch.from_numpy(qs).to(links.device)
+    ents = torch.full((n_q,), gpu._entry, dtype=torch.int32,
+                      device=links.device)
+    for hops in (1, 8):
+        default = pk.DESCENT_HOPS
+        pk.DESCENT_HOPS = hops
+        try:
+            graphed = pk.greedy_descend(q, pack, gpu._d_upper, ents, m)
+        finally:
+            pk.DESCENT_HOPS = default
+        eager = pk._descend_from(q, pack, gpu._d_upper, ents,
+                                 pk._entry_scores(q, pack, ents, m), 0,
+                                 hops, 64, m)
+        assert torch.equal(graphed, eager), hops
+    s, i = pk.beam_search_layer(q, pack, links, eager[:, None], 128, 2, 256,
+                                m)
+    state, _, block, _ = pk._beam_program("layer", [q, eager[:, None]], pack,
+                                          links, 128, 2, 256, m)
+    pk._run_blocks(state, block, block)
+    assert torch.equal(s, state[0]) and torch.equal(i, state[1])
+
+
+@pytest.mark.cuda
+def test_cuda_cache_captures_again_after_a_rebuild_and_a_growth():
+    """An upsert that rebuilds the link mirror, and one that grows the
+    keeper, give the next search new tensors: it captures again, matches
+    the CPU engine, and the cache keeps no stale entry and no reference to
+    the old tensors, within its bound."""
+    _need_cuda()
+    cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    p = HnswSearchParams(k=10, ef=64)
+    qs = rng.normal(size=(8, 32)).astype(np.float32)
+    gpu.select_batch(qs, p)
+    ctx = pk._graph_ctx(gpu._d_links0.device)
+
+    def mutate(rows) -> list:
+        old = [weakref.ref(x) for x in (gpu._d_links0, gpu.keeper.data)]
+        for r in rows:
+            gpu.upsert(int(r), rng.normal(size=32).astype(np.float32))
+        gpu.commit()
+        before = pk.graph_captures.value
+        got = gpu.select_batch(qs, p)
+        assert pk.graph_captures.value > before
+        cpu.load_state_dict(gpu.state_dict())
+        for a, b in zip(cpu.select_batch(qs, p), got):
+            assert_same(a, b)
+        gc.collect()
+        assert len(ctx.entries) <= pk.CACHE_ENTRIES
+        assert not any(e.stale() for e in ctx.entries.values())
+        return old
+
+    links, _ = mutate(range(1, 6))
+    assert links() is None
+    cap = gpu.keeper.capacity
+    links, data = mutate(range(cap, cap + 3))
+    assert gpu.keeper.capacity > cap
+    assert links() is None and data() is None
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_searches_share_the_cache():
+    """Sixteen threads search one index at once, with four query shapes,
+    so that they take turns on the device's cache entries: every answer
+    equals the one the same search gave alone."""
+    _need_cuda()
+    _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    p = HnswSearchParams(k=10, ef=64)
+    sets = [rng.normal(size=(n, 32)).astype(np.float32)
+            for n in (1, 8, 20, 64) for _ in range(3)]
+
+    def answers(qs):
+        return [(r.ids.tolist(), r.ranks.tolist())
+                for r in gpu.select_batch(qs, p)]
+    want = [answers(qs) for qs in sets]
+    wrong = []
+
+    def worker(k):
+        try:
+            for j in range(6):
+                i = (k + j) % len(sets)
+                if answers(sets[i]) != want[i]:
+                    wrong.append(i)
+        except Exception as e:      # reported by the assertion below
+            wrong.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not wrong, wrong
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_session_matches_cpu_session():
+    """Two streaming sessions a side, the second replaying the first's
+    graphs: the same batches as the CPU's sessions."""
+    _need_cuda()
+    cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    q = rng.normal(size=32).astype(np.float32)
+    for _ in range(2):
+        before = pk.graph_captures.value
+        batches = []
+        for ix in (cpu, gpu):
+            s = KnnStreamingSession(ix, q, 64)
+            batches.append([s.next_batch(64) for _ in range(3)])
+        for (ids_a, sc_a), (ids_b, sc_b) in zip(*batches):
+            assert ids_a.tolist() == ids_b.tolist()
+            np.testing.assert_allclose(sc_a, sc_b, rtol=RTOL, atol=ATOL)
+    assert pk.graph_captures.value == before
+
+
+@pytest.mark.cuda
+def test_cuda_one_card_mesh_matches_cpu_mesh():
+    """Four HNSW shards of one card against four of the CPU holding the
+    same graphs: the same answers, and a second search captures nothing
+    (each shard's tensors have their own cache entries)."""
+    _need_cuda()
+    from reindexer_tpu_torch.parallel.context import MeshContext
+    rng = np.random.default_rng(21)
+    base = rng.normal(size=(1600, 24)).astype(np.float32)
+    idx = {}
+    for dev in ("cuda", "cpu"):
+        db = port.Reindexer(mesh=MeshContext([dev] * 4), device=dev)
+        db.open_namespace("mh", [
+            IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
+            hnsw_def(port, 24, "INNER_PRODUCT", m=8, efc=64)])
+        for i in range(0 if dev == "cuda" else len(base), len(base)):
+            db.upsert("mh", {"id": i, "vec": base[i].tolist()})
+        idx[dev] = db.get_namespace("mh").get_index("vec")
+    idx["cuda"].commit()
+    idx["cpu"].load_state_dict(idx["cuda"].state_dict())
+    qs = rng.normal(size=(8, 24)).astype(np.float32)
+    p = HnswSearchParams(k=10, ef=64)
+    for rnd in range(2):
+        before = pk.graph_captures.value
+        got = idx["cuda"].select_batch(qs, p)
+        assert (pk.graph_captures.value == before) == (rnd == 1)
+        for a, b in zip(idx["cpu"].select_batch(qs, p), got):
+            assert_same(a, b)

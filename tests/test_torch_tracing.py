@@ -402,6 +402,9 @@ def test_every_span_site_names_a_listed_span():
 
 @pytest.mark.cuda
 def test_on_the_card_a_search_captures_and_replays_its_beam_graph():
+    """The first search of a shape captures its graphs; a second of the
+    same shape captures none, makes as many stop-flag reads (each a span,
+    as many as the host reads) and gives identical answers."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs exist only there")
     rng = np.random.default_rng(3)
@@ -413,17 +416,20 @@ def test_on_the_card_a_search_captures_and_replays_its_beam_graph():
     for i, row in enumerate(rng.normal(size=(2000, DIMS)).tolist()):
         db.upsert("ns", {"id": i, "v": row})
     p = HnswSearchParams(k=10, ef=128)
-    db.knn_batch("ns", "v", queries(8), p)
     tracing.configure(keep=True)
-    before = tracing.counters()
-    db.knn_batch("ns", "v", queries(8), p)
-    after = tracing.counters()
-    spans = tracing.take()
-    assert edges(spans) >= {("hnsw.stop_read", "engine.dispatch"),
-                            ("engine.device_wait", "engine.dispatch")}
-    d = {k: after[k] - before[k] for k in after}
-    assert d["hnsw.graph_captures"] == 1 and d["engine.dispatches"] == 1
-    # each stop-flag read is a span; the beam's reads after the first
-    # follow a replay of the captured graph
-    stops = sum(s[0] == "hnsw.stop_read" for s in spans)
-    assert stops == d["hnsw.host_syncs"] and stops > 2
+    runs = []
+    for _ in range(2):
+        before = tracing.counters()
+        res = db.knn_batch("ns", "v", queries(8), p)
+        after = tracing.counters()
+        spans = tracing.take()
+        assert edges(spans) >= {("hnsw.stop_read", "engine.dispatch"),
+                                ("engine.device_wait", "engine.dispatch")}
+        d = {k: after[k] - before[k] for k in after}
+        assert d["engine.dispatches"] == 1
+        stops = sum(s[0] == "hnsw.stop_read" for s in spans)
+        assert stops == d["hnsw.host_syncs"] and stops > 2
+        runs.append((d["hnsw.graph_captures"], stops,
+                     [(r.row_ids().tolist(), r.ranks()) for r in res]))
+    assert runs[0][0] > 0 and runs[1][0] == 0, runs
+    assert runs[0][1:] == runs[1][1:]
