@@ -3,6 +3,7 @@ the profiled phase after it and the per-layer readers, and the comparison
 with the reference. Returns the result object run.py prints."""
 from __future__ import annotations
 
+import bisect
 import gc
 import sys
 import time
@@ -79,28 +80,44 @@ class Profile:
             self.prof.__exit__(None, None, None)
 
 
+class _Cover:
+    """The union of closed intervals, merged once, asked by bisection
+    whether it holds a point."""
+
+    def __init__(self, intervals):
+        self.starts, self.ends = [], []
+        for s, e in sorted(intervals):
+            if self.ends and s <= self.ends[-1]:
+                self.ends[-1] = max(self.ends[-1], e)
+            else:
+                self.starts.append(s)
+                self.ends.append(e)
+
+    def __contains__(self, t) -> bool:
+        i = bisect.bisect_right(self.starts, t) - 1
+        return i >= 0 and t <= self.ends[i]
+
+
 def _breakdown(reading) -> dict:
     """The ten device operations that took most time, and the idle time
     of the device split by what the host was doing at each gap's middle."""
     tr = reading.trace
     ops = sorted(tr.by_name().items(), key=lambda kv: -kv[1][1])[:10]
-    labels = (("gc", "gc"), ("graph_capture", "hnsw graph capture"),
-              ("engine", "engine host work (dispatch, drain)"))
+    labels = [(_Cover((s, e) for s, e, _ in reading.spans.get(probe, ())),
+               label)
+              for probe, label in (("gc", "gc"),
+                                   ("graph_capture", "hnsw graph capture"),
+                                   ("engine",
+                                    "engine host work (dispatch, drain)"))]
+    busy = _Cover((s, e) for s, e, _, _ in reading.profiled)
+    host = ("result assembly and facade"
+            if reading.traffic["entry"] == "knn_batch"
+            else "executor, dynbatch and assembly")
     idle: dict = {}
     for g0, g1 in tr.gaps():
         mid = ((g0 + g1) / 2 - reading.trace_offset_ns) / 1e9
-        what = None
-        for probe, label in labels:
-            if any(s <= mid <= e
-                   for s, e, _ in reading.spans.get(probe, ())):
-                what = label
-                break
-        if what is None:
-            busy = any(s <= mid <= e for s, e, _, _ in reading.profiled)
-            what = (("result assembly and facade"
-                     if reading.traffic["entry"] == "knn_batch"
-                     else "executor, dynbatch and assembly") if busy
-                    else "client loop")
+        what = next((label for cover, label in labels if mid in cover),
+                    host if mid in busy else "client loop")
         idle[what] = idle.get(what, 0.0) + (g1 - g0) / 1e9
     return {"device_ops": [[name[:200], sec] for name, (_, sec) in ops],
             "idle_gaps": sorted(([k, v] for k, v in idle.items()),
@@ -131,6 +148,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     on_card = torch.device(device).type == "cuda"
     data = Data(config, traffic, seed)
 
+    params = knn_params(config, traffic)
     rec = probes.Recorder() if trace else None
     needed: dict = {}     # probe -> the cell's per-layer metrics reading it
     if trace:
@@ -144,7 +162,6 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         _require(rec, needed)
     log(f"[setup] {system.docs} documents by db.upsert in "
         f"{system.load_s:.3f} s")
-    params = knn_params(config, traffic)
     if control:
         from ..control import Tf32Reference
         ref = Tf32Reference(data.rows, config["metric"], system.index.keeper

@@ -1,7 +1,22 @@
 """Finds every part of a cell by its name: BENCHMARK.json at the checkout's
 root, configs/<config>.json, traffic/<mix>.json, generators/<name>.py,
 metrics/<metric>.py and probes/*.json under h100bench/. A new cell, mix,
-generator, metric or probe is a new file and a new entry, never an edit."""
+generator, metric or probe is a new file and a new entry, never an edit.
+
+What a configuration and a traffic file may hold for the program
+(system.py reads them, and ends the run on a key it does not know):
+
+- configuration: `metric` (`l2`, `inner_product`, `cosine`), `dims`,
+  `rows`, and an `index` block of `type` (`vec_bf`, `hnsw`, `ivf`),
+  `precision` (`fp32`) and `FloatVectorOpts` fields as written: `m`,
+  `ef_construction`, `start_size`, `multithreading`, `centroids_count`,
+  `radius`, `quantization` (`false` or {enabled, left_quantile,
+  right_quantile, min_elements, mode});
+- traffic: the search keys `k`, `ef` (hnsw), `nprobe` (ivf), `radius`;
+  and the load's keys (load.py): `entry` (`knn_batch`, `select`),
+  `queries_per_call`, `clients`, `query_pool`, `warmup_s`,
+  `checked_requests`, `profile_s` (`loop`: `closed`, the only one).
+"""
 from __future__ import annotations
 
 import importlib.util

@@ -4,7 +4,8 @@ It imports nothing of the program. It gets the rows and queries the
 harness made from the seed, works out the exact top-k of each query again,
 and rebuilds each stored document from its id. Ranks follow the
 program's convention: the squared distance for L2 (lower is better), the
-inner product for inner_product (higher is better).
+inner product for inner_product and the cosine similarity for cosine
+(higher is better; a zero row or query scores 0).
 """
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ def lower_is_better(metric: str) -> bool:
     return metric == "l2"
 
 
+def unit(x64: np.ndarray) -> np.ndarray:
+    """Each row (last axis) over its norm; a zero row stays zero."""
+    norm = np.linalg.norm(x64, axis=-1, keepdims=True)
+    return x64 / np.where(norm == 0.0, 1.0, norm)
+
+
 def ranks64(rows64: np.ndarray, q64: np.ndarray, ids: np.ndarray,
             metric: str) -> np.ndarray:
     """Exact rank of rows `ids` (any shape) for the query q64 [D]."""
@@ -24,6 +31,8 @@ def ranks64(rows64: np.ndarray, q64: np.ndarray, ids: np.ndarray,
     if metric == "l2":
         d = r - q64
         return np.einsum("...d,...d->...", d, d)
+    if metric == "cosine":
+        return unit(r) @ unit(q64)
     return r @ q64
 
 
@@ -32,6 +41,8 @@ def all_ranks64(rows64: np.ndarray, q64: np.ndarray, metric: str):
     if metric == "l2":
         return ((rows64 * rows64).sum(1)[None, :] - 2.0 * (q64 @ rows64.T)
                 + (q64 * q64).sum(1)[:, None])
+    if metric == "cosine":
+        return unit(q64) @ unit(rows64).T
     return q64 @ rows64.T
 
 
@@ -40,6 +51,9 @@ def exact_topk(rows: np.ndarray, queries: np.ndarray, k: int,
     """(ids [Q, k], ranks [Q, k]) best first, ties by the lower id."""
     rows64 = rows.astype(np.float64)
     q64 = queries.astype(np.float64)
+    if metric == "cosine":
+        # the inner product of the unit rows, normalised once
+        rows64, q64, metric = unit(rows64), unit(q64), "inner_product"
     ids_out = np.empty((len(q64), k), dtype=np.int64)
     ranks_out = np.empty((len(q64), k), dtype=np.float64)
     for lo in range(0, len(q64), BLOCK):

@@ -32,7 +32,7 @@ def test_sift_like_rows_are_integers_in_range():
     np.testing.assert_array_equal(d.rows, np.rint(d.rows))
 
 
-@pytest.mark.parametrize("metric", ["l2", "inner_product"])
+@pytest.mark.parametrize("metric", ["l2", "inner_product", "cosine"])
 def test_reference_topk_against_a_full_sort(metric):
     rng = np.random.default_rng(3)
     rows = rng.normal(size=(200, 6)).astype(np.float32)
@@ -127,3 +127,71 @@ def test_trace_busy_union_and_loss_correction():
     assert tr.busy_s == pytest.approx((35 + 20) / 1e9)
     assert tr.gaps() == [(15, 20), (30, 40), (50, 100)]
     assert tr.by_name()["k"] == (3, pytest.approx(30 / 1e9))
+
+
+def breakdown_by_loop(reading) -> dict:
+    """runner._breakdown as it was first written: every gap's middle
+    tested against every span, the reference for the bisecting one."""
+    tr = reading.trace
+    ops = sorted(tr.by_name().items(), key=lambda kv: -kv[1][1])[:10]
+    labels = (("gc", "gc"), ("graph_capture", "hnsw graph capture"),
+              ("engine", "engine host work (dispatch, drain)"))
+    idle: dict = {}
+    for g0, g1 in tr.gaps():
+        mid = ((g0 + g1) / 2 - reading.trace_offset_ns) / 1e9
+        what = None
+        for probe, label in labels:
+            if any(s <= mid <= e
+                   for s, e, _ in reading.spans.get(probe, ())):
+                what = label
+                break
+        if what is None:
+            busy = any(s <= mid <= e for s, e, _, _ in reading.profiled)
+            what = (("result assembly and facade"
+                     if reading.traffic["entry"] == "knn_batch"
+                     else "executor, dynbatch and assembly") if busy
+                    else "client loop")
+        idle[what] = idle.get(what, 0.0) + (g1 - g0) / 1e9
+    return {"device_ops": [[name[:200], sec] for name, (_, sec) in ops],
+            "idle_gaps": sorted(([k, v] for k, v in idle.items()),
+                                key=lambda kv: -kv[1])[:10]}
+
+
+@pytest.mark.parametrize("entry", ["knn_batch", "select"])
+def test_breakdown_bisects_as_the_loop_tested(entry):
+    """Overlapping, nested, touching and unsorted spans from 4 threads,
+    gaps whose middles fall on a span's edge, inside, between and
+    outside all spans: the same labels, seconds and order."""
+    rng = np.random.default_rng(11)
+    off = 1_000_000_000_000
+    t0 = 50_000_000_000       # ns after the offset: 50 s on perf_counter
+    starts = np.sort(rng.integers(t0, t0 + 10**9, size=3000))
+    events = [(int(s) + off, int(s) + off + int(rng.integers(1, 200_000)),
+               f"k{i % 13}") for i, s in enumerate(starts)]
+    tr = measure.DeviceTrace(events, {}, t0 + off, t0 + 10**9 + off)
+
+    def spans(n, longest):
+        a = 50.0 + rng.uniform(0, 1.0, size=n)
+        out = [(float(s), float(s + rng.uniform(0, longest)),
+                int(rng.integers(4))) for s in a]
+        out += [(out[0][1], out[0][1] + 1e-4, 0),     # touching
+                (out[1][0] + 1e-6, out[1][1], 1)]     # nested
+        rng.shuffle(out)
+        return out
+
+    gaps = tr.gaps()
+    # a span that ends on the first gap's middle, one that starts on the
+    # second's
+    mids = [((g0 + g1) / 2 - off) / 1e9 for g0, g1 in gaps[:2]]
+    reading = runner.Reading(
+        trace=tr, trace_offset_ns=off, traffic={"entry": entry},
+        spans={"gc": spans(40, 2e-4) + [(mids[0] - 1e-5, mids[0], 2)],
+               "graph_capture": [(mids[1], mids[1] + 1e-5, 3)],
+               "engine": spans(400, 1e-3)},
+        profiled=[(s, e, 64, True) for s, e, _ in spans(300, 3e-3)])
+    got, want = runner._breakdown(reading), breakdown_by_loop(reading)
+    assert got == want
+    assert {k for k, _ in got["idle_gaps"]} == {
+        "gc", "hnsw graph capture", "engine host work (dispatch, drain)",
+        "result assembly and facade" if entry == "knn_batch"
+        else "executor, dynbatch and assembly", "client loop"}
