@@ -27,6 +27,9 @@ TPU-first twists vs the reference:
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import threading
 import time
 from contextlib import contextmanager
@@ -48,13 +51,107 @@ def _item_hash(doc: dict) -> int:
     """Stable 64-bit per-item checksum (reference: calculateItemChecksum /
     PayloadChecksum, namespaceimpl.cc:748 — XORed incrementally into the
     namespace dataHash). blake2b over canonical JSON so the hash is
-    process- and insert-order-independent."""
-    import hashlib
-    import json
-    blob = json.dumps(doc, sort_keys=True, separators=(",", ":"),
-                      default=str).encode()
+    process- and insert-order-independent. The JSON is that of
+    `_json_blob`, byte for byte (replication compares the hash with the
+    reference package's); the C++ lane writes the text of float lists."""
+    native = _float_text_module()
+    if native is None:
+        hash_fallbacks.add()
+        blob = _json_blob(doc)
+    else:
+        blob = _spliced_blob(doc, native.float_list_text)
     return int.from_bytes(hashlib.blake2b(blob, digest_size=8).digest(),
                           "little")
+
+
+def _json_blob(doc: dict) -> bytes:
+    """The canonical JSON the checksum is taken over."""
+    return json.dumps(doc, sort_keys=True, separators=(",", ":"),
+                      default=str).encode()
+
+
+_FLOAT_TEXT = None
+_FLOAT_TEXT_TRIED = False
+# checksums taken by _json_blob alone because the C++ lane did not build
+hash_fallbacks = tracing.counter("ns.hash_fallbacks")
+
+
+def _float_text_module():
+    """Lazily built C++ text of float lists (csrc/float_text_native.cpp);
+    None: the checksum's JSON is json.dumps's alone."""
+    global _FLOAT_TEXT, _FLOAT_TEXT_TRIED
+    if not _FLOAT_TEXT_TRIED:
+        _FLOAT_TEXT_TRIED = True
+        if os.environ.get("RX_TPU_DISABLE_NATIVE", "") not in ("1", "true"):
+            from ..csrc import load
+            _FLOAT_TEXT = load("_float_text_native", "float_text_native.cpp")
+    return _FLOAT_TEXT
+
+
+def _untrack_vector(vec) -> None:
+    """Takes a stored vector, a list of exact floats, out of the cyclic
+    collector's walk (csrc/float_text_native.cpp, untrack_float_list). The
+    namespace keeps the caller's document, so otherwise every full
+    collection visits each float of every stored vector: about a second
+    for 100k documents of 768 floats, a stall of whatever the process is
+    serving. Such a list holds no container and closes no cycle; a cycle
+    made later through it by putting a container in it is not collected.
+    Without the C++ lane the list stays tracked."""
+    native = _float_text_module()
+    if native is not None:
+        native.untrack_float_list(vec)
+
+
+class _FloatText:
+    """A float list's JSON text, standing in the document for the list."""
+
+    __slots__ = ("text",)
+
+    def __init__(self, text: bytes):
+        self.text = text
+
+
+# what json.dumps writes for a _FloatText: the spliced text goes there
+_SLOT = "rx.float-list"
+_SLOT_JSON = b'"rx.float-list"'
+
+
+def _spliced_blob(doc: dict, float_list_text) -> bytes:
+    """_json_blob(doc), with the text of each list or tuple of exact
+    floats written by `float_list_text` and spliced into json.dumps's text
+    of the rest. json.dumps calls `default` in the order of its output, so
+    the n-th slot takes the n-th text; the document itself may hold the
+    slot's text (a string equal to it), so a count of slots other than
+    the texts' falls back to _json_blob, as does any error of encoding
+    (which _json_blob then raises as before)."""
+    texts = []
+
+    def default(o):
+        if type(o) is _FloatText:
+            texts.append(o.text)
+            return _SLOT
+        return str(o)
+
+    def swap(v):
+        t = type(v)
+        if t is dict:
+            return {key: swap(x) for key, x in v.items()}
+        if t is list or t is tuple:
+            text = float_list_text(v)
+            return [swap(x) for x in v] if text is None else _FloatText(text)
+        return v
+
+    try:
+        parts = json.dumps(swap(doc), sort_keys=True, separators=(",", ":"),
+                           default=default).encode().split(_SLOT_JSON)
+    except (TypeError, ValueError, RecursionError):
+        return _json_blob(doc)
+    if len(parts) != len(texts) + 1:
+        return _json_blob(doc)
+    out = [parts[0]]
+    for text, part in zip(texts, parts[1:]):
+        out += (text, part)
+    return b"".join(out)
 
 
 class PerfCounters:
@@ -327,6 +424,8 @@ class Namespace:
             index_ns = 0
             for idef, index in zip(self.payload_type.indexes, self.indexes):
                 vals = self._extract_values(doc, idef)
+                if idef.is_vector:
+                    _untrack_vector(vals)
                 self._set_column(idef, row, vals)
                 t = time.perf_counter_ns() if timed else 0
                 index.upsert(row, vals)

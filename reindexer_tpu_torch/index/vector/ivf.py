@@ -33,6 +33,11 @@ with the penalty a function of the batch, fitted to both routes measured on
 the H100 (PERF.md, "IVF router"). A failure of K6 raises: there is no
 fallback.
 
+While tracing is on, stage 1 (`ivf.probe`), K6's plan (`ivf.plan`), the
+training (`ivf.train`) and the reorder (`ivf.reorder`) are spans, and the
+segment route counts the rows of the distinct lists K6 reads
+(`ivf.seg_rows`) and the live segments it scores (`ivf.seg_live`).
+
 Mesh-resident mode (attach_mesh; parallel/sharded_ivf.py): the keeper's
 rows and the list assignment split over the shards and stage 2 is the
 probe-mask scan of each shard's rows (`_stage2_sharded`, counted by
@@ -95,6 +100,13 @@ masked_sweeps = tracing.counter("ivf.masked_sweeps")
 gather_scans = tracing.counter("ivf.gather_scans")
 # stage 2 through the sharded probe-mask scan
 mesh_sweeps = tracing.counter("ivf.mesh_sweeps")
+# per segment-route stage 2, while tracing is on: the rows of the distinct
+# probed lists (K6 reads each probed block once for all the batch's
+# queries, a ragged last block in 32-row boxes, so a list's rows and not
+# its whole blocks are what it must read), and the live segments it scores
+# (a query and a block it probes)
+seg_rows = tracing.counter("ivf.seg_rows")
+seg_live = tracing.counter("ivf.seg_live")
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -191,22 +203,23 @@ class IvfIndex(FloatVectorIndexBase):
     def _train(self) -> None:
         """k-means on up to 39 * nlist sampled rows, then every valid row is
         assigned to its nearest centroid."""
-        self.keeper.flush()
-        rows = np.flatnonzero(self.keeper.valid)
-        if len(rows) == 0:
-            return
-        nlist = min(self.nlist, len(rows))
-        n_train = min(len(rows), max(_TRAIN_FACTOR * nlist, _MIN_TRAIN))
-        sample = self._rng.choice(rows, size=n_train, replace=False)
-        train_d = self.keeper.take(sample)
-        init_rows = self._rng.choice(n_train, size=nlist, replace=False)
-        init_d = train_d[self._rows_d(init_rows).to(train_d.device)]
-        self.centroids = kmeans_l2(train_d, init_d, _KMEANS_ITERS)
-        assign = self._assign_all()
-        self._assign[:] = -1
-        self._assign[rows] = assign[rows]
-        self._pending_rows.clear()
-        self._csr_dirty = True
+        with (tracing.span("ivf.train") if tracing.on else tracing.OFF):
+            self.keeper.flush()
+            rows = np.flatnonzero(self.keeper.valid)
+            if len(rows) == 0:
+                return
+            nlist = min(self.nlist, len(rows))
+            n_train = min(len(rows), max(_TRAIN_FACTOR * nlist, _MIN_TRAIN))
+            sample = self._rng.choice(rows, size=n_train, replace=False)
+            train_d = self.keeper.take(sample)
+            init_rows = self._rng.choice(n_train, size=nlist, replace=False)
+            init_d = train_d[self._rows_d(init_rows).to(train_d.device)]
+            self.centroids = kmeans_l2(train_d, init_d, _KMEANS_ITERS)
+            assign = self._assign_all()
+            self._assign[:] = -1
+            self._assign[rows] = assign[rows]
+            self._pending_rows.clear()
+            self._csr_dirty = True
 
     def _assign_all(self) -> np.ndarray:
         """The nearest list of every keeper row (rows not valid too)."""
@@ -271,7 +284,8 @@ class IvfIndex(FloatVectorIndexBase):
         dev = self.keeper.device
         self._d_list_rows = torch.from_numpy(rows_p).to(dev)
         self._d_list_start = torch.from_numpy(self._list_start).to(dev)
-        self._rebuild_segments()
+        with (tracing.span("ivf.reorder") if tracing.on else tracing.OFF):
+            self._rebuild_segments()
         self._csr_dirty = False
 
     def _rebuild_segments(self) -> None:
@@ -342,8 +356,9 @@ class IvfIndex(FloatVectorIndexBase):
             return scan_lists_batch(qd, self.keeper.data, sq_eff,
                                     sq_eff < SQ_EFF_BIG / 2, cand, ok, kk,
                                     self.metric)
-        probes = self._probe_host(q_host, min(nprobe,
-                                              self.centroids.shape[0]))
+        with (tracing.span("ivf.probe") if tracing.on else tracing.OFF):
+            probes = self._probe_host(q_host, min(nprobe,
+                                                  self.centroids.shape[0]))
         if self._use_segments(probes):
             segment_scans.add()
             return self._stage2_segments(qd, k, probes)
@@ -431,7 +446,12 @@ class IvfIndex(FloatVectorIndexBase):
                          probes: np.ndarray):
         """Segment route: K6 scores exactly the probed blocks and
         segment_topk folds them with original row ids."""
-        starts, qids, counts = self._segment_plan(probes)
+        with (tracing.span("ivf.plan") if tracing.on else tracing.OFF):
+            starts, qids, counts = self._segment_plan(probes)
+        if tracing.on:
+            lens = np.diff(self._list_start)
+            seg_rows.add(int(lens[np.unique(probes)].sum()))
+            seg_live.add(int(self._seg_blocks[probes].sum()))
         seg_scores = scan_segments(starts, qids, counts, qd,
                                    self._d_reordered, self.metric)
         return segment_topk(seg_scores, starts, self._d_perm, qd,

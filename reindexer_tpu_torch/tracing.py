@@ -59,7 +59,7 @@ SPANS = (
     "ns.lock_wait", "dynbatch.wait", "dynbatch.dispatch",
     "engine.dispatch", "engine.drain", "engine.device_wait",
     "hnsw.stop_read", "hnsw.commit", "hnsw.build.link", "hnsw.build.wait",
-    "python.gc",
+    "ivf.probe", "ivf.plan", "ivf.train", "ivf.reorder", "python.gc",
 )
 CAPACITY = 1 << 20      # spans the buffer holds
 FLUSH_NS = 1_000_000_000    # an exporter's buffer is flushed this often

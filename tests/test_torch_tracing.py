@@ -49,6 +49,9 @@ def make_db(kind: str) -> Reindexer:
     if kind == "hnsw":
         opts = FloatVectorOpts(dims=DIMS, metric=VectorMetric.L2, m=8,
                                ef_construction=32)
+    if kind == "ivf":
+        opts = FloatVectorOpts(dims=DIMS, metric=VectorMetric.L2,
+                               centroids_count=8)
     db = Reindexer(device="cpu")
     db.open_namespace("ns", [
         IndexDef("id", "hash", "int", opts=IndexOpts(is_pk=True)),
@@ -95,14 +98,19 @@ def test_off_records_nothing_and_event_counters_count():
 
 
 def test_registered_counters_keep_their_module_attributes():
-    from reindexer_tpu_torch.index.vector import brute_force
+    from reindexer_tpu_torch.core import namespace
+    from reindexer_tpu_torch.index.vector import brute_force, ivf
     from reindexer_tpu_torch.ops import hnsw_kernels
     assert tracing.counter("hnsw.beam_steps") is hnsw_kernels.beam_steps
+    assert tracing.counter("ivf.seg_rows") is ivf.seg_rows
+    assert tracing.counter("ivf.seg_live") is ivf.seg_live
+    assert tracing.counter("ns.hash_fallbacks") is namespace.hash_fallbacks
     assert tracing.counter("hnsw.host_syncs") is hnsw_kernels.host_syncs
     assert tracing.counter("bf.overflow_reruns") is brute_force.overflow_reruns
     assert {"hnsw.graph_captures", "engine.dispatches", "ns.upserts",
             "ns.upsert_index_ns", "tracing.dropped",
-            "kernels.bf_scan"} <= set(tracing.counters())
+            "kernels.bf_scan", "ivf.seg_rows", "ivf.seg_live",
+            "ns.hash_fallbacks"} <= set(tracing.counters())
 
 
 BF_BATCH = {("Reindexer.knn_batch", None),
@@ -126,6 +134,11 @@ TREES = {
     ("hnsw", "knn_batch"): (BF_BATCH - {("engine.device_wait",
                                          "engine.drain")}) | HNSW_ENGINE,
     ("hnsw", "select"): SELECT | HNSW_ENGINE,
+    # the CPU's IVF route is the masked sweep: stage 1 on the host, no plan
+    ("ivf", "knn_batch"): (BF_BATCH - {("engine.device_wait",
+                                        "engine.drain")})
+    | {("ivf.probe", "engine.dispatch")},
+    ("ivf", "select"): SELECT | {("ivf.probe", "engine.dispatch")},
 }
 
 
@@ -167,6 +180,27 @@ def test_an_hnsw_build_gives_commit_dispatch_link_and_wait():
     # a search with nothing pending commits nothing
     run(db, "hnsw", "knn_batch")
     assert "hnsw.commit" not in {s[0] for s in tracing.take()}
+
+
+def test_an_ivf_build_and_search_give_their_stage_spans(monkeypatch):
+    assert {"ivf.probe", "ivf.plan", "ivf.train",
+            "ivf.reorder"} <= set(tracing.SPANS)
+    monkeypatch.setenv("RX_IVF_SEGMENTS", "1")
+    db = make_db("ivf")
+    tracing.configure(keep=True)
+    before = tracing.counters()
+    run(db, "ivf", "knn_batch")
+    spans = tracing.take()
+    ivf = sorted(s[0] for s in spans if s[0].startswith("ivf."))
+    assert ivf == ["ivf.plan", "ivf.probe", "ivf.reorder", "ivf.train"]
+    assert edges(spans) >= {(name, "engine.dispatch") for name in ivf}
+    after = tracing.counters()
+    assert after["ivf.seg_live"] > before["ivf.seg_live"]
+    assert after["ivf.seg_rows"] > before["ivf.seg_rows"]
+    # built: a search is stage 1 and the plan
+    run(db, "ivf", "knn_batch")
+    assert sorted(s[0] for s in tracing.take() if s[0].startswith(
+        "ivf.")) == ["ivf.plan", "ivf.probe"]
 
 
 def test_upserts_count_their_index_time_while_tracing_is_on():
