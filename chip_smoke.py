@@ -5,9 +5,9 @@
 
 Phases, in order; any failure raises, so the exit code is not 0:
   0. identity: the card's name and power limit (nvidia-smi), torch, CUDA;
-  1. build: the six kernels (K1 bf_scan, K2 bf_select, K3 sq8_scan, K4
-     sq8_select, K5 sq8_i8_scan, K6 ivf_seg_scan) with nvcc from csrc/, one
-     nvcc per source,
+  1. build: the seven kernels (K1 bf_scan, K2 bf_select, K3 sq8_scan, K4
+     sq8_select, K5 sq8_i8_scan, K6 ivf_seg_scan, K7 hnsw_beam) with nvcc
+     from csrc/, one nvcc per source,
      all started together, timed, with ptxas's registers and spills;
   2. K1/K2 vs their plain PyTorch versions on the card at the main path's
      shapes (131072 x 128, 64 queries and 1 query, k=100, L2 and IP, with
@@ -88,10 +88,18 @@ Phases, in order; any failure raises, so the exit code is not 0:
      and 64 selects against a float64 oracle (ranks exact within rtol 1e-4,
      recall@10 >= 0.95 at ef 128, falling by no more than 0.005 as ef
      grows); per ef the host ms, device ms, idle share, beam steps, host
-     syncs and device launches per search (the beam loop is plain
-     PyTorch, so these say whether it is launch-bound);
+     syncs and device launches per search (the beam is K7, one launch a
+     search; the descent one graph replay and one host read);
  13. SQ8 HNSW on the same graph: the store active, recall@10 >= 0.9 at ef
-     128, ranks exact after the fp32 rescore;
+     128, ranks exact after the fp32 rescore; then K7 against its plain
+     twin on the card at the main path's shape (64 queries, ef 128): bit
+     for bit (W, C, visited words, `it`) on 200,000 x 96 rows of small
+     integers, fp32 and SQ8, IP and L2; on the deep-like graph, fp32 and
+     SQ8, `it` equal, at most K7_SPLIT_MAX queries on another path (a
+     near-tie), the rest with ids equal up to near-ties and scores within
+     K7_SCORE_ATOL; K7's device ms, the eager twin's and K7's bound (rows
+     scored, link rows and visited words over 3.35 TB/s); K7's launches
+     from the main path on join the kernel line;
  14. the HNSW public API at bench_hnsw's size (20,000 x 96 IP, efC 128,
      db.upsert, 1,000 deletes): 64 selects, knn_batch(64) and an SQL KNN
      against the oracle with no deleted row, a streaming query (KNN with
@@ -392,7 +400,7 @@ def phase_identity() -> tuple[str, str]:
 
 
 KERNELS = ("bf_scan", "bf_select", "sq8_scan", "sq8_select", "sq8_i8_scan",
-           "ivf_seg_scan")
+           "ivf_seg_scan", "hnsw_beam")
 
 
 def phase_build() -> None:
@@ -1740,6 +1748,15 @@ HNSW_API_N, HNSW_API_D, HNSW_API_EFC = 20_000, 96, 128   # bench_hnsw
 HNSW_API_EF = 64
 HNSW_API_MIN_RECALL = 0.9
 HNSW_ARRAY_DOCS, HNSW_ARRAY_VECS = 2_000, 3
+HNSW_K7_EF = 128          # K7 at the main path's beam width (ef 128)
+# K7 on the deep-like graph against its plain twin: their fp32 sums run in
+# another order (1-2 ulps of a score near 1), so a near-tie at a pop or a
+# cut may send a query another way; the queries that keep the twin's path
+# must match within K7_SCORE_ATOL (unit rows: 96 x 2^-24 of sum |q_d v_d|
+# <= 1 is 6e-6; a TF32 or bf16 product is off by ~1e-3) and with ids equal
+# up to near-ties, and no more than K7_SPLIT_MAX of 64 may split
+K7_SCORE_ATOL = 1e-5
+K7_SPLIT_MAX = 4
 
 
 def hnsw_counters() -> dict:
@@ -1964,9 +1981,10 @@ def phase_hnsw_main(card: str, ix, base, queries) -> None:
         f"{HNSW_RECALL_EF} and falls by no more than {HNSW_RECALL_DROP}")
 
 
-def phase_hnsw_sq8(card: str, ix, base, queries) -> None:
+def phase_hnsw_sq8(card: str, ix, base, queries):
     """SQ8 HNSW on the same graph (the build reads the fp32 rows with or
-    without quantization, so the graph is loaded from the fp32 index)."""
+    without quantization, so the graph is loaded from the fp32 index).
+    Returns the SQ8 index."""
     from reindexer_tpu_torch import HnswSearchParams
     from reindexer_tpu_torch.index.vector.hnsw import HnswIndex
     sq = HnswIndex(hnsw_def("vec", HNSW_D, HNSW_EFC, quant=True),
@@ -1989,6 +2007,7 @@ def phase_hnsw_sq8(card: str, ix, base, queries) -> None:
         f"recall@{HNSW_K} {recall:.4f}, ranks exact after the fp32 rescore; "
         f"first call (quantize) {first_s:.2f} s; device {busy:.4f} ms, idle "
         f"share {idle:.4f}, {events} device launches per search on {card}")
+    return sq
 
 
 def phase_hnsw_api(card: str, dev) -> None:
@@ -2129,14 +2148,181 @@ def phase_hnsw_array(dev) -> str:
             f"document recall@{HNSW_K} {recall:.4f}")
 
 
-def phase_hnsw(card: str, dev) -> None:
+def k7(q, pack, links, entries, metric):
+    """K7 on the card at ef HNSW_K7_EF, expand 2: (w_s, w_ids, c_s, c_ids,
+    visited, it)."""
+    from reindexer_tpu_torch.ops import hnsw_kernels as pk
+    ef = HNSW_K7_EF
+    return pk.hnsw_beam("layer", q, pack, links, (entries,), ef, 2, 2 * ef,
+                        metric)
+
+
+def k7_twin(q, pack, links, entries, metric):
+    """K7's plain twin (_beam_program + _run_blocks, eager) on the same
+    inputs: the same six tensors."""
+    from reindexer_tpu_torch.ops import hnsw_kernels as pk
+    ef = HNSW_K7_EF
+    state, block = pk._beam_program("layer", [q, entries], pack, links, ef,
+                                    2, 2 * ef, metric)
+    pk._run_blocks(state, block)
+    return state[:6]
+
+
+def k7_and_twin(q, pack, links, entries, metric):
+    got = k7(q, pack, links, entries, metric)
+    want = k7_twin(q, pack, links, entries, metric)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def k7_exact(dev) -> str:
+    """K7 bit for bit against its twin at the main path's shape (200,000 x
+    96, 64 queries, 32 links a row, ef 128) on rows of small integers
+    (fp32: -3..3; SQ8: codes 0..7, offsets -2..2, scales 1..2), so that
+    every fp32 sum is exact in any order: W, C, the visited words and `it`
+    equal. 5% of the rows have no links (deleted rows), -1 slots
+    elsewhere, every third query zero (a padded batch)."""
+    from reindexer_tpu_torch import VectorMetric
+    from reindexer_tpu_torch.ops.hnsw_kernels import DataPack
+    rng = np.random.default_rng(SEED + 20)
+    n, d, m0 = HNSW_N, HNSW_D, 2 * HNSW_M
+    links = rng.integers(-1, n, size=(n, m0)).astype(np.int32)
+    links[rng.random(n) < 0.05] = -1
+    q = rng.integers(-3, 4, size=(HNSW_Q, d)).astype(np.float32)
+    q[::3] = 0
+    ents = rng.integers(0, n, size=(HNSW_Q, 1)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    out = []
+    for quant in (False, True):
+        if quant:
+            codes = rng.integers(0, 8, size=(n, d)).astype(np.uint8)
+            lo = rng.integers(-2, 3, size=d).astype(np.float32)
+            alpha = rng.integers(1, 3, size=d).astype(np.float32)
+            deq = lo + alpha * codes.astype(np.float32)
+            pack = DataPack(t(codes), t((deq * deq).sum(axis=1)), t(lo),
+                            t(alpha))
+        else:
+            data = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+            pack = DataPack(t(data), t((data * data).sum(axis=1)))
+        for metric in (VectorMetric.INNER_PRODUCT, VectorMetric.L2):
+            got, want = k7_and_twin(t(q), pack, t(links), t(ents), metric)
+            for name, a, b in zip(("w_s", "w_ids", "c_s", "c_ids", "visited",
+                                   "it"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"[hnsw kernel] K7 differs from its twin in {name} "
+                        f"on integer rows ({'SQ8' if quant else 'fp32'}, "
+                        f"{metric.name})")
+            out.append(f"{'SQ8' if quant else 'fp32'} {metric.name} "
+                       f"{int(got[5])} steps")
+        del pack
+    return ", ".join(out)
+
+
+def k7_real(tag: str, ix, queries, metric) -> tuple[dict, str]:
+    """K7 against its twin on the index's own graph and rows: `it` equal;
+    per query the visited words equal (the same path) for all but
+    K7_SPLIT_MAX queries, and on every query that kept the path W's and
+    C's ids equal up to near-ties and their scores within K7_SCORE_ATOL.
+    Then the device ms of K7 and of the twin, and K7's bound: the rows it
+    scored (the visited bits), two link rows and 2 x M0 visited words a
+    query and step, over 3.35 TB/s. Returns (stats, summary)."""
+    from reindexer_tpu_torch.ops import hnsw_kernels as pk
+    dev = ix.keeper.device
+    q = torch.from_numpy(np.stack([ix.keeper.prepare_query(v)
+                                   for v in queries])).to(dev)
+    pack = ix._pack(for_search=True)
+    ents = torch.full((len(queries),), ix._entry, dtype=torch.int32,
+                      device=dev)
+    if ix._max_level > 0:
+        ents = pk.greedy_descend(q, pack, ix._d_upper, ents, metric)
+    ents = ents[:, None]
+    links = ix._d_links0
+    got, want = k7_and_twin(q, pack, links, ents, metric)
+    if int(got[5]) != int(want[5]):
+        raise AssertionError(f"[hnsw kernel] {tag}: K7 ran {int(got[5])} "
+                             f"steps, its twin {int(want[5])}")
+    same_path = (got[4] == want[4]).all(dim=1).cpu().numpy()
+    if (~same_path).sum() > K7_SPLIT_MAX:
+        raise AssertionError(f"[hnsw kernel] {tag}: {(~same_path).sum()} of "
+                             f"{len(queries)} queries visited other rows")
+    err = 0.0
+    for s_i, i_i in ((0, 1), (2, 3)):
+        gs, gi = got[s_i].cpu().numpy(), got[i_i].cpu().numpy()
+        ws, wi = want[s_i].cpu().numpy(), want[i_i].cpu().numpy()
+        for r in np.flatnonzero(same_path):
+            fin = np.isfinite(ws[r])
+            if not np.array_equal(np.isfinite(gs[r]), fin):
+                raise AssertionError(f"[hnsw kernel] {tag}: query {r} "
+                                     "holds another count of rows")
+            score = dict(zip(wi[r].tolist(), ws[r].tolist()))
+            score |= dict(zip(gi[r].tolist(), gs[r].tolist()))
+            kth = float(ws[r][fin][-1]) if fin.any() else 0.0
+            if tie_violations(gi[r][fin].tolist(), wi[r][fin].tolist(),
+                              lambda i: score[i], kth, TIE_RTOL):
+                raise AssertionError(f"[hnsw kernel] {tag}: query {r}'s "
+                                     "ids differ beyond near-ties")
+            both = fin & (gi[r] == wi[r])
+            if both.any():
+                err = max(err, float(np.abs(gs[r][both] - ws[r][both]).max()))
+    if err > K7_SCORE_ATOL:
+        raise AssertionError(f"[hnsw kernel] {tag}: scores differ by {err:.3g}"
+                             f" > {K7_SCORE_ATOL}")
+    steps = int(got[5])
+    rows = int(np.unpackbits(got[4].cpu().numpy().view(np.uint8)).sum())
+    code_bytes = 1 if pack.quantized else 4
+    m0 = links.shape[1]
+    n_bytes = (rows * HNSW_D * code_bytes
+               + len(queries) * steps * (2 * m0 * 4 + 2 * m0 * 4))
+    least = bound(n_bytes, 2.0 * rows * HNSW_D, "fp32")
+    ms = device_ms(lambda: k7(q, pack, links, ents, metric), n=10)
+    plain_ms = device_ms(lambda: k7_twin(q, pack, links, ents, metric), n=2)
+    stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": None, **least}
+    return stats, (
+        f"{tag}: {steps} steps, {int(same_path.sum())}/{len(queries)} "
+        f"queries on the twin's path, max score err {err:.3g}; {rows} rows "
+        f"scored ({n_bytes / 1e6:.1f} MB with links and visited words); K7 "
+        f"{ms:.4f} ms ({1e3 * ms / steps:.2f} us a step), the eager twin "
+        f"{plain_ms:.2f} ms, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']} ({least['bound_ms'] / ms:.1%})")
+
+
+def phase_hnsw_kernel(card: str, ix, sq, queries) -> dict:
+    """K7 hnsw_beam against its plain twin on the card: bit for bit on
+    integer rows at the main path's shape, then on the deep-like graph,
+    fp32 and SQ8, with times. Returns K7's stats (fp32, the main path)."""
+    exact = k7_exact(ix.keeper.device)
+    log(f"[hnsw kernel] K7 = its twin bit for bit on {HNSW_N} x {HNSW_D} "
+        f"integer rows, {HNSW_Q} queries, ef {HNSW_K7_EF}: {exact}")
+    stats = None
+    for tag, index in (("fp32", ix), ("SQ8", sq)):
+        st, summary = k7_real(tag, index, queries, index.metric)
+        log(f"[hnsw kernel] {HNSW_N} x {HNSW_D} graph, {HNSW_Q} queries, ef "
+            f"{HNSW_K7_EF}, {summary} on {card}")
+        stats = stats or st
+    return stats
+
+
+def phase_hnsw(card: str, dev) -> tuple[dict, int]:
+    """The HNSW phases; returns (K7's stats, its launches from the main
+    path's run on)."""
+    from reindexer_tpu_torch.ops import hnsw_kernels
     ix, base, queries = phase_hnsw_setup(dev)
     phase_hnsw_cpu_agree(ix, queries)
+    hnsw_kernels.hnsw_beam_launches.reset()
     phase_hnsw_main(card, ix, base, queries)
-    phase_hnsw_sq8(card, ix, base, queries)
-    del ix
+    sq = phase_hnsw_sq8(card, ix, base, queries)
+    launches = hnsw_kernels.hnsw_beam_launches.value
+    stats = phase_hnsw_kernel(card, ix, sq, queries)
+    del ix, sq
     torch.cuda.empty_cache()
+    hnsw_kernels.hnsw_beam_launches.reset()
     phase_hnsw_api(card, dev)
+    launches += hnsw_kernels.hnsw_beam_launches.value
+    if not launches:
+        raise AssertionError("the HNSW phases launched no K7")
+    return stats, launches
 
 
 # --- full text (BASELINE config #4's shape) and hybrid (config #5) --------
@@ -2593,9 +2779,10 @@ SERVER_TIMEOUT_S = 300
 
 
 def kernel_counters() -> dict:
-    from reindexer_tpu_torch.ops import ivf_kernels, scan, select
+    from reindexer_tpu_torch.ops import hnsw_kernels, ivf_kernels, scan, select
     return {"bf_scan": scan.launches, "bf_select": select.launches,
-            "ivf_seg_scan": ivf_kernels.seg_scan_launches}
+            "ivf_seg_scan": ivf_kernels.seg_scan_launches,
+            "hnsw_beam": hnsw_kernels.hnsw_beam_launches}
 
 
 class PersistRows:
@@ -3055,7 +3242,7 @@ def phase_server(card: str, dev, root: str, live: dict, restarted: dict,
             rpcd.port, [sel] * SERVER_THREADS, [serial] * SERVER_THREADS,
             "vec_bf"), 1, host=True)
         busy = sum(per.values())
-        # HNSW selects (their beam loops capture and replay CUDA graphs)
+        # HNSW selects (a descent's CUDA graph replayed, then one K7 launch)
         # beside vec_bf selects (K1 + K2), half the threads each
         hq = [Query("hnsw").where_knn("vec", v, HnswSearchParams(
             k=HNSW_K, ef=HNSW_API_EF)) for v in qs["hnsw"]]
@@ -4189,7 +4376,7 @@ def main() -> int:
     mark("IVF routes")
     launches["ivf_seg_scan"] += phase_ivf_api(card, dev)
     mark("IVF API")
-    phase_hnsw(card, dev)
+    stats["hnsw_beam"], launches["hnsw_beam"] = phase_hnsw(card, dev)
     mark("HNSW")
     phase_ft(card, dev)
     mark("full text")
@@ -4237,7 +4424,9 @@ def main() -> int:
                             "reindexer_tpu/ops/pallas_select.py:247",
                 "sq8_select": "reindexer_tpu/ops/pallas_select.py:948",
                 "sq8_i8_scan": "reindexer_tpu/ops/pallas_select.py:1453",
-                "ivf_seg_scan": "reindexer_tpu/ops/ivf_kernels.py:338"}
+                "ivf_seg_scan": "reindexer_tpu/ops/ivf_kernels.py:338",
+                "hnsw_beam": "none (lax.while_loop, "
+                             "reindexer_tpu/ops/hnsw_kernels.py _beam_loop)"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"reindexer_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name],

@@ -63,7 +63,7 @@ from ...index.base import SelectKeyResult
 from ...index.vector.params import KnnSearchParams
 
 from ...ops.distance import normalize_rows, scores_to_ranks
-from ...ops.hnsw_kernels import (DataPack, beam_search_layer,
+from ...ops.hnsw_kernels import (DataPack, beam_search_layer, beam_steps,
                                  exact_build_layer, exact_rescore,
                                  greedy_descend)
 from ...parallel.sharded_hnsw import shard_beam
@@ -169,24 +169,30 @@ class HnswIndex(FloatVectorIndexBase):
         q = np.zeros((qpad, self.dims), dtype=np.float32)
         q[:Q] = queries
         ef_pad = _pow2(ef, 16)
-        parts = []
+        parts, its = [], []
         for s, sub in enumerate(subs):
             sub._commit()
             sub._sync_device()
-            sc, li = shard_beam(
+            sc, li, it = shard_beam(
                 sub._upload(q), sub.keeper.data, sub.keeper.sq,
                 sub._d_links0, sub._d_upper if sub._max_level > 0 else None,
                 sub._entry, ef_pad, self.metric)
             parts.append((sc, torch.where(li >= 0, li * S + s, -1)))
+            its.append(it)
         bs, bi = ctx.merge(parts, ef_pad)
-        packed = torch.cat([bs[:Q].contiguous().view(torch.int32),
-                            bi[:Q]], dim=1).cpu()
+        # scores, ids and the shards' beam counts in one copy
+        packed = torch.cat([bs[:Q].contiguous().view(torch.int32).flatten(),
+                            bi[:Q].flatten(),
+                            torch.stack([x.to(bs.device) for x in its])]
+                           ).cpu()
         deleted = [sub._deleted for sub in subs]   # snapshot under the lock
 
         def drain() -> tuple[np.ndarray, np.ndarray]:
-            host = packed.numpy()
-            s = host[:, :ef_pad].view(np.float32)
-            i = host[:, ef_pad:]
+            flat = packed.numpy()
+            beam_steps.add(int(flat[Q * 2 * ef_pad:].sum()))
+            host = flat[:Q * 2 * ef_pad].reshape(2, Q, ef_pad)
+            s = host[0].view(np.float32)
+            i = host[1]
             bad = i < 0
             for sh in range(S):
                 mine = (i >= 0) & (i % S == sh)
@@ -672,23 +678,27 @@ class HnswIndex(FloatVectorIndexBase):
         if self._max_level > 0 and self._d_upper is not None:
             ents = greedy_descend(qd, pack, self._d_upper, ents, self.metric)
         ef_pad = _pow2(ef, 16)
-        bs, bi = beam_search_layer(
+        bs, bi, it = beam_search_layer(
             qd, pack, self._d_links0, ents[:, None],
             ef=ef_pad, expand=2, max_iters=2 * ef_pad, metric=self.metric)
         if pack.quantized:
             # exact fp32 re-rank of the quantized beam's results
             bs, bi = exact_rescore(qd, self.keeper.data, self.keeper.sq,
                                    bi, bs, self.metric)
+        # scores, ids and the beam's count in one copy
         packed = tracing.device_read(
-            torch.cat([bs[:Q].contiguous().view(torch.int32),
-                       bi[:Q].to(torch.int32)], dim=1), "engine.device_wait")
+            torch.cat([bs[:Q].contiguous().view(torch.int32).flatten(),
+                       bi[:Q].to(torch.int32).flatten(), it.reshape(1)]),
+            "engine.device_wait")
         deleted = self._deleted      # snapshot under the caller's lock
+        width = bs.shape[1]
 
         def drain() -> tuple[np.ndarray, np.ndarray]:
-            host = packed.numpy()
-            width = host.shape[1] // 2
-            s = host[:, :width].view(np.float32)
-            i = host[:, width:]
+            flat = packed.numpy()
+            beam_steps.add(int(flat[-1]))
+            host = flat[:-1].reshape(2, Q, width)
+            s = host[0].view(np.float32)
+            i = host[1]
             safe = np.where(i >= 0, i, 0)
             bad = (i < 0) | deleted[safe]
             s = np.where(bad, -np.inf, s)

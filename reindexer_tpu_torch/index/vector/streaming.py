@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from ...ops.hnsw_kernels import (NEG_INF, beam_begin_stream,
-                                 beam_search_resume, exact_rescore,
-                                 greedy_descend)
+                                 beam_search_resume, beam_steps,
+                                 exact_rescore, greedy_descend)
 from .hnsw import _pow2
 
 MIN_EF_BATCH = 100   # reference kMinEfBatch
@@ -143,6 +143,7 @@ class KnnStreamingSession:
         scores = host[:width].view(np.float32)
         ids = host[width: 2 * width]
         self.iters_total += int(host[2 * width])
+        beam_steps.add(int(host[2 * width]))
         frontier_dead = bool(host[2 * width + 1:].view(np.float32)[0]
                              == -np.inf)
         keep = ids >= 0

@@ -37,11 +37,13 @@ _LAUNCH_ARGTYPES = {
     "sq8_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                    _P],
     "ivf_seg_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "hnsw_beam": [_P] * 19 + [_I] * 10 + [_P],
 }
 # other C functions a library exports: name -> (argtypes, restype)
 _EXTRA_FUNCS = {
     "sq8_select": {"sq8_select_scratch_bytes": ([_I, _I], _L)},
     "ivf_seg_scan": {"ivf_seg_scan_scratch_ints": ([_I, _I, _I], _L)},
+    "hnsw_beam": {"hnsw_beam_spill_bytes": ([_I] * 5, _L)},
 }
 
 _lock = threading.Lock()

@@ -2,53 +2,59 @@
 reindexer_tpu/ops/hnsw_kernels.py): batched beam search, greedy descent,
 the neighbor-selection heuristic and the exact-candidate build step.
 
-The JAX module is plain jitted XLA, with no Pallas kernel, so this port is
-ordinary PyTorch. Scores are "higher is better" (L2 negated), as in
+The JAX module is plain jitted XLA, with no Pallas kernel. On the card the
+beam search is one hand-written kernel, K7 (`csrc/hnsw_beam.cu`); the rest
+is ordinary PyTorch. Scores are "higher is better" (L2 negated), as in
 ops/distance.py.
 
 What the port keeps, and how:
 
   - The batch-wide stop. The JAX beam is one device program, a
     `lax.while_loop` whose body runs for every query of the batch while any
-    query is active and `it < max_iters`. Here each step takes a device
-    flag `go`, the loop condition evaluated on the state; when it is false
-    the step leaves every tensor as it was and `it` does not move. The
-    host reads the flag once every SYNC_EVERY steps, so a search makes
+    query is active and `it < max_iters`. On the card K7 runs that whole
+    loop in one launch: after each step its blocks vote on the stop across
+    the grid, and it writes `it` beside the results, so the host reads no
+    stop flag. On the CPU the plain twin (_beam_program) steps with a
+    device flag `go`, the loop condition evaluated on the state; when it is
+    false the step leaves every tensor as it was and `it` does not move.
+    The host reads the flag once every SYNC_EVERY steps, so a search makes
     about iters / SYNC_EVERY + 1 host syncs, and the extra steps after the
-    stop change nothing. `it` is the JAX loop's count exactly.
+    stop change nothing. `it` is the JAX loop's count exactly, on both.
   - Greedy descent per layer stops, as in JAX, when no query of the batch
     improved at a hop or after max_hops hops. A hop leaves a query that did
     not improve where it is, so hops past that stop change nothing: each
     layer runs a budget of hops, one host read checks every layer's stop
     at once, and a layer that was still moving runs again from its start
     with twice the budget.
-  - CUDA graphs on the card. The beam and the descent are one small
-    kernel after another, so the host's launch cost is most of a search.
+  - A CUDA graph for the descent on the card. Its hops are one small
+    kernel after another, so the host's launch cost is most of a descent.
     Each device keeps a cache of captured graphs (_GraphCtx), keyed by all
     a graph bakes in (_graph_key): the shapes, the metric, the pack kind,
-    the constants, and the address and layout of the tensors read in place.
-    A search of a key seen before copies its inputs into the entry's
-    buffers and replays: one graph for the descent's first pass, one for
-    the beam's set-up and first block, one for each later block; the host
-    reads stay where they are, between replays. An entry is captured once
-    on a miss, and released when a tensor its key names is gone (a rebuilt
-    link table, a grown keeper, new SQ8 codes) or past CACHE_ENTRIES. The
-    graphs share the device's pool: everything a graph writes that outlives
-    its replay is in the entry's own buffers. The CPU runs the same code
+    the hop budget, and the address and layout of the tensors read in
+    place. A descent of a key seen before copies its inputs into the
+    entry's buffers and replays the graph of its first pass; the host read
+    of its stop flags follows the replay. An entry is captured once on a
+    miss, and released when a tensor its key names is gone (a rebuilt link
+    table, a grown keeper, new SQ8 codes) or past CACHE_ENTRIES. The graphs
+    share the device's pool: everything a graph writes that outlives its
+    replay is in the entry's own buffers. The CPU runs the same code
     eagerly.
   - Ties. `lax.top_k` ranks equal values by the lower index first, and
     `jnp.argsort` is stable; here both are a stable sort (`_top_k`,
-    `torch.argsort(stable=True)`), on the CPU and on the card alike.
+    `torch.argsort(stable=True)`), and K7 places equal scores in the order
+    of that sort.
   - The visited bitset is int32 words (torch has little uint32): bit 31 is
     INT_MIN, and as the bits one step adds are distinct and unset,
     `scatter_add_` is a bitwise OR with no overflow. Its bits equal the JAX
     uint32 words' through a numpy view.
 
-`beam_steps` counts the beam iterations (the JAX loop's `iters`, summed),
-`host_syncs` the host reads of a loop's or a descent's stop flag,
-`graph_captures` the CUDA graphs captured (two on a beam's cache miss, one
-on a descent's, none on a hit). While tracing is on, each stop-flag read is
-an `hnsw.stop_read` span.
+`beam_steps` counts the beam iterations (the JAX loop's `iters`, summed):
+the beam returns `it` beside its results, and its caller adds it once the
+copy of its results reaches the host. `host_syncs` counts the host reads of
+a loop's or a descent's stop flag, `graph_captures` the descent's CUDA
+graphs captured (one on a miss, none on a hit), `kernels.hnsw_beam` K7's
+launches. While tracing is on, each stop-flag read is an `hnsw.stop_read`
+span.
 """
 from __future__ import annotations
 
@@ -59,23 +65,27 @@ from typing import Optional
 
 import torch
 
+from . import _build
 from .. import tracing
 from ..core.type_consts import VectorMetric
+from .scan import _cuda_or_cpu
 
 NEG_INF = float("-inf")
 _F32_LOWEST = float(torch.finfo(torch.float32).min)
 _GRAPH_CTX: dict = {}   # device index -> _GraphCtx
-SYNC_EVERY = 8          # beam steps between two host reads of the stop flag
+SYNC_EVERY = 8          # plain beam steps between two host reads of the stop
 DESCENT_HOPS = 8        # greedy hops a layer runs before its stop is read
-CACHE_ENTRIES = 16      # cached search graphs a device keeps
+CACHE_ENTRIES = 16      # cached descent graphs a device keeps
+
 
 # beam iterations run (the JAX loop's iters)
 beam_steps = tracing.counter("hnsw.beam_steps")
 # host reads of a loop's or a descent's stop flag
 host_syncs = tracing.counter("hnsw.host_syncs")
-# CUDA graphs captured: a descent's first pass, a beam's first block (with
-# its set-up), a beam's later block
+# CUDA graphs captured: a descent's first pass
 graph_captures = tracing.counter("hnsw.graph_captures")
+# K7 launches: one a beam search on the card
+hnsw_beam_launches = tracing.counter("kernels.hnsw_beam")
 
 
 def _score_gathered(q: torch.Tensor, vecs: torch.Tensor, vec_sq: torch.Tensor,
@@ -223,10 +233,10 @@ def _beam_step(queries, pack, links, w_s, w_ids, c_s, c_ids, visited, go,
 class _GraphCtx:
     """Per device: the side stream graphs are captured on, the memory pool
     they share, the newest graph, the cache of entries (key -> _Entry,
-    least recently used first) and a lock. A search on the card holds the
+    least recently used first) and a lock. A descent on the card holds the
     lock from the copy of its inputs into an entry to the copy of its
     results out of it, and enqueues all of it on the device's current
-    stream, so one search at a time runs graphs of the pool and uses an
+    stream, so one descent at a time runs graphs of the pool and uses an
     entry's buffers."""
 
     def __init__(self, device: torch.device):
@@ -282,27 +292,26 @@ def _graph_key(kind: str, sizes: tuple, metric: VectorMetric,
                pack: DataPack, *tensors) -> tuple:
     """Everything a graph of `kind` bakes in: its sizes (the shapes of the
     inputs it copies in, and its integer arguments), the metric, the pack
-    kind, SYNC_EVERY and DESCENT_HOPS, and the identity (device, dtype,
-    address, shape, strides) of every read-only tensor it reads in
-    place: the pack's and `tensors`."""
+    kind, DESCENT_HOPS, and the identity (device, dtype, address, shape,
+    strides) of every read-only tensor it reads in place: the pack's and
+    `tensors`."""
     ident = tuple(None if t is None else
                   (str(t.device), t.dtype, t.data_ptr(), tuple(t.shape),
                    t.stride())
                   for t in (pack.data, pack.data_sq, pack.lo, pack.alpha,
                             *tensors))
-    return (kind, sizes, metric, pack.quantized, SYNC_EVERY,
-            DESCENT_HOPS) + ident
+    return (kind, sizes, metric, pack.quantized, DESCENT_HOPS) + ident
 
 
 class _Entry:
-    """One key's graphs, the static buffers they read (ins) and write
-    (outs), allocated outside any graph pool, and the constants they read.
-    Of the tensors its key names it keeps weak references only: once one
-    of them is gone, the entry is stale."""
+    """One key's graphs and the static buffers they read (ins) and write
+    (outs), allocated outside any graph pool. Of the tensors its key names
+    it keeps weak references only: once one of them is gone, the entry is
+    stale."""
 
-    def __init__(self, tensors, ins, outs, consts, graphs):
+    def __init__(self, tensors, ins, outs, graphs):
         self.refs = [weakref.ref(t) for t in tensors if t is not None]
-        self.ins, self.outs, self.consts = ins, outs, consts
+        self.ins, self.outs = ins, outs
         self.graphs = graphs
 
     def stale(self) -> bool:
@@ -326,32 +335,23 @@ def _entry(ctx: _GraphCtx, key: tuple, build) -> _Entry:
 
 def _beam_program(kind: str, ins: list, pack, links, ef: int, expand: int,
                   max_iters: int, metric: VectorMetric):
-    """The beam loop's state [w_s, w_ids, c_s, c_ids, visited, it, go],
-    made from ins = [queries, *inputs], two functions over it in place
-    (`restart` sets it from ins again, `block` runs SYNC_EVERY steps) and
-    the constants they read. The inputs are the entry ids ("layer") or W
-    and C, both ef wide, and the visited bitset ("resume")."""
+    """K7's plain twin: the beam loop's state [w_s, w_ids, c_s, c_ids,
+    visited, it, go], made from ins = [queries, *inputs], and a function
+    that runs SYNC_EVERY steps of it in place. The inputs are the entry ids
+    ("layer") or W and C, both ef wide, and the visited bitset
+    ("resume"); they are not modified."""
     dev = ins[0].device
     K = expand * links.shape[1]
     pop = torch.zeros((1, ef), dtype=torch.bool, device=dev)
     pop[:, :expand] = True
     earlier = torch.ones((K, K), dtype=torch.bool, device=dev).tril(-1)
-
-    def start():
-        if kind == "layer":
-            return _beam_init(ins[0], pack, links.shape[0], ins[1], ef, ef,
-                              metric)
-        return ins[1:]
-
+    if kind == "layer":
+        state = list(_beam_init(ins[0], pack, links.shape[0], ins[1], ef, ef,
+                                metric))
+    else:
+        state = [x.clone() for x in ins[1:]]
     it = torch.zeros((), dtype=torch.int32, device=dev)
-    state = [x.clone() for x in start()]
     state += [it, _active(state[0], state[2], ef, it, max_iters)]
-
-    def restart():
-        for dst, src in zip(state, start()):
-            dst.copy_(src)
-        it.zero_()
-        state[6].copy_(_active(state[0], state[2], ef, it, max_iters))
 
     def block():
         w_s, w_ids, c_s, c_ids, visited, it, go = state
@@ -365,13 +365,13 @@ def _beam_program(kind: str, ins: list, pack, links, ef: int, expand: int,
             dst.copy_(src)
         state[6].copy_(go)
 
-    return state, restart, block, (pop, earlier)
+    return state, block
 
 
-def _run_blocks(state: list, first, block) -> None:
-    """Run first, then block while the device flag `go` says so, with one
+def _run_blocks(state: list, block) -> None:
+    """Run block, then again while the device flag `go` says so, with one
     host read of the stop flag after each."""
-    first()
+    block()
     last_it = -1
     while True:
         host_syncs.add()
@@ -379,7 +379,6 @@ def _run_blocks(state: list, first, block) -> None:
             torch.stack([state[6].to(torch.int32), state[5]]),
             "hnsw.stop_read")
         if not flag[0]:
-            beam_steps.add(int(flag[1]))
             return
         if int(flag[1]) <= last_it:
             # a live block always moves `it`; a block that did not would
@@ -389,50 +388,87 @@ def _run_blocks(state: list, first, block) -> None:
         block()
 
 
-def _beam_loop(kind: str, queries, pack, links, inputs: tuple, ef: int,
-               expand: int, max_iters: int, metric: VectorMetric,
-               n_out: int):
-    """The best-first expansion loop of one-shot ("layer") and streaming
-    ("resume") searches, W and C both ef wide (_beam_program). Returns the
-    first n_out of (w_s, w_ids, c_s, c_ids, visited, it), `it` the
-    iteration count (an int32 tensor); the inputs are not modified.
-
-    The loop runs in blocks of SYNC_EVERY steps, with one host read of the
-    stop flag after each. On the CPU it runs as it is. On the card it
-    replays the graphs of the device's cache entry for its key: the inputs
-    are copied into the entry's buffers, one graph sets the state and runs
-    the first block, another runs each later block, and the results are
-    copied out."""
+def hnsw_beam(kind: str, queries, pack, links, inputs: tuple, ef: int,
+              expand: int, max_iters: int, metric: VectorMetric):
+    """K7 (`csrc/hnsw_beam.cu`): the whole beam loop of `kind` in one launch
+    on the card. Returns (w_s, w_ids, c_s, c_ids, visited, it) as the plain
+    twin's state holds them when its loop ends, `it` an int32 tensor.
+    inputs: the entry ids i32[Q, E0], E0 <= ef ("layer"), or W and C, both
+    [Q, ef], and the visited bitset ("resume"); they are not modified.
+    Every ef runs: where a block's arrays outgrow its shared memory, they
+    spill to a scratch tensor (`hnsw_beam_spill_bytes`)."""
     dev = queries.device
-    if dev.type != "cuda":
-        state, _, block, _ = _beam_program(kind, [queries, *inputs], pack,
-                                           links, ef, expand, max_iters,
-                                           metric)
-        _run_blocks(state, block, block)
-        return tuple(state[:n_out])
-    ctx = _graph_ctx(dev)
-    key = _graph_key("beam." + kind,
-                     _shapes(queries, *inputs) + (ef, expand, max_iters),
-                     metric, pack, links)
+    n_q, d = queries.shape
+    m0 = links.shape[1]
+    if not 1 <= expand <= ef:
+        raise ValueError(f"hnsw_beam takes 1 <= expand <= ef, got expand "
+                         f"{expand}, ef {ef}")
+    lib = _build.load("hnsw_beam")
+    code_type = torch.uint8 if pack.quantized else torch.float32
+    if (queries.dtype != torch.float32 or pack.data.dtype != code_type
+            or pack.data.shape[1:] != (d,) or links.dtype != torch.int32):
+        raise ValueError(
+            f"hnsw_beam expects f32 queries [Q, D], {code_type} rows [N, D] "
+            f"and i32 links, got {queries.dtype} {tuple(queries.shape)}, "
+            f"{pack.data.dtype} {tuple(pack.data.shape)}, {links.dtype}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    w_s, c_s = torch.empty((n_q, ef), **f32), torch.empty((n_q, ef), **f32)
+    w_i, c_i = torch.empty((n_q, ef), **i32), torch.empty((n_q, ef), **i32)
+    ctl = torch.zeros(8, **i32)     # barrier, stop votes, `it` at [5]
+    with torch.cuda.device(dev):
+        n_spill = lib.hnsw_beam_spill_bytes(n_q, d, expand * m0, ef,
+                                            int(pack.quantized))
+    if n_spill < 0:
+        raise RuntimeError("hnsw_beam: the launch's shape query failed")
+    spill = (torch.empty(n_spill, dtype=torch.uint8, device=dev)
+             if n_spill else None)
+    if kind == "layer":
+        entry, resume = inputs[0].to(torch.int32), (None,) * 5
+        visited = torch.empty((n_q, (links.shape[0] + 31) // 32), **i32)
+    else:
+        entry = None
+        resume = tuple(x if x.dtype == torch.float32 else x.to(torch.int32)
+                       for x in inputs)
+        if any(x.shape != (n_q, ef) for x in resume[:4]) or \
+                resume[4].shape[0] != n_q:
+            raise ValueError(
+                f"hnsw_beam resumes from W and C [{n_q}, {ef}] and a visited "
+                f"bitset [{n_q}, n_words], got "
+                f"{[tuple(x.shape) for x in resume]}")
+        visited = torch.empty(resume[4].shape, **i32)
+    # contiguous, and held here until the launch is queued
+    args = [None if t is None else t.contiguous() for t in (
+        queries, pack.data, pack.data_sq, pack.lo, pack.alpha, links, entry,
+        *resume, w_s, w_i, c_s, c_i, visited, ctl, spill)]
+    e0 = 0 if entry is None else entry.shape[1]
+    with torch.cuda.device(dev):
+        code = lib.hnsw_beam_launch(
+            *(None if t is None else t.data_ptr() for t in args), n_q, d, m0,
+            e0, ef, expand, max_iters, visited.shape[1],
+            int(metric == VectorMetric.L2), int(pack.quantized),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(lib, "hnsw_beam", code)
+    hnsw_beam_launches.add()
+    return w_s, w_i, c_s, c_i, visited, ctl[5]
 
-    def build() -> _Entry:
-        ins = [x.clone() for x in (queries, *inputs)]
-        state, restart, block, consts = _beam_program(
-            kind, ins, pack, links, ef, expand, max_iters, metric)
 
-        def first():
-            restart()
-            block()
-        return _Entry((pack.data, pack.data_sq, pack.lo, pack.alpha, links),
-                      ins, state, consts, _graphs(ctx, dev, first, block))
-
-    with ctx.lock:
-        e = _entry(ctx, key, build)
-        for dst, src in zip(e.ins, (queries, *inputs)):
-            dst.copy_(src)
-        first, block = e.graphs
-        _run_blocks(e.outs, first.replay, block.replay)
-        return tuple(x.clone() for x in e.outs[:n_out])
+def _beam_loop(kind: str, queries, pack, links, inputs: tuple, ef: int,
+               expand: int, max_iters: int, metric: VectorMetric):
+    """The best-first expansion loop of one-shot ("layer") and streaming
+    ("resume") searches, W and C both ef wide. Returns (w_s, w_ids, c_s,
+    c_ids, visited, it), `it` the iteration count (an int32 tensor, which
+    the caller adds to `beam_steps` once its copy is on the host); the
+    inputs are not modified. On the card it is K7, one launch; on the CPU
+    the plain twin, in blocks of SYNC_EVERY steps with one host read of the
+    stop flag after each."""
+    if _cuda_or_cpu("hnsw_beam", queries.device):
+        return hnsw_beam(kind, queries, pack, links, inputs, ef, expand,
+                         max_iters, metric)
+    state, block = _beam_program(kind, [queries, *inputs], pack, links, ef,
+                                 expand, max_iters, metric)
+    _run_blocks(state, block)
+    return tuple(state[:6])
 
 
 def beam_search_layer(
@@ -447,10 +483,13 @@ def beam_search_layer(
     separate unexpanded frontier C; each iteration expands the `expand`
     best frontier nodes of every query at once.
 
-    Returns (w_scores f32[Q, ef], w_ids i32[Q, ef]) best-first; empty
-    slots are (-inf, -1)."""
-    return _beam_loop("layer", queries, pack, links, (entry_ids,), ef,
-                      expand, max_iters, metric, 2)
+    Returns (w_scores f32[Q, ef], w_ids i32[Q, ef], iters) best-first;
+    empty slots are (-inf, -1); iters is the loop's count, an int32 tensor
+    for the caller to add to `beam_steps`."""
+    w_s, w_ids, _, _, _, it = _beam_loop("layer", queries, pack, links,
+                                         (entry_ids,), ef, expand, max_iters,
+                                         metric)
+    return w_s, w_ids, it
 
 
 def beam_begin_stream(
@@ -501,7 +540,7 @@ def beam_search_resume(
     c_s, c_ids = _fit_width(c_s, c_ids, ef)
     return _beam_loop("resume", queries, pack, links,
                       (w_s, w_ids, c_s, c_ids, visited), ef, expand,
-                      max_iters, metric, 6)
+                      max_iters, metric)
 
 
 def exact_rescore(queries: torch.Tensor, data: torch.Tensor,
@@ -609,7 +648,7 @@ def _descend_graphed(queries, pack, links_stack, entry, hops: int,
             outs[0].copy_(cur)
             outs[1].copy_(torch.stack(moved))
         return _Entry((pack.data, pack.data_sq, pack.lo, pack.alpha,
-                       links_stack), ins, outs, (), _graphs(ctx, dev, run))
+                       links_stack), ins, outs, _graphs(ctx, dev, run))
 
     with ctx.lock:
         e = _entry(ctx, key, build)
@@ -718,8 +757,9 @@ def insert_layer(
     analog of the reference's per-point addPoint, hnswalg.h:1402).
 
     Returns (selected i32[Q, m] best-first (-1 pad), next_entries i32[Q])."""
-    bs, bi = beam_search_layer(queries, pack, links, entry_ids[:, None], ef,
-                               expand, max_iters, metric)
+    bs, bi, it = beam_search_layer(queries, pack, links, entry_ids[:, None],
+                                   ef, expand, max_iters, metric)
+    beam_steps.add(int(it))
     next_ents = torch.where(bi[:, 0] >= 0, bi[:, 0], entry_ids)
     srt_s, srt_i = _sorted_candidates(
         torch.cat([bs, cand_extra_scores], dim=1),

@@ -21,29 +21,33 @@ import numpy as np
 import torch
 
 from ..core.type_consts import VectorMetric
-from ..ops.hnsw_kernels import DataPack, beam_search_layer, greedy_descend
+from ..ops.hnsw_kernels import (DataPack, beam_search_layer, beam_steps,
+                                greedy_descend)
 
 
 def shard_beam(q: torch.Tensor, data: torch.Tensor, sq: torch.Tensor,
                links0: torch.Tensor, upper, entry: int, ef: int,
                metric: VectorMetric,
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One shard's beam: (scores f32[Q, ef], LOCAL ids i32[Q, ef]), -inf /
-    -1 where empty; all -inf / -1 for a shard without an entry. upper is
-    the shard's top-first [Lu, cap, M] table or None."""
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's beam: (scores f32[Q, ef], LOCAL ids i32[Q, ef], iters),
+    -inf / -1 where empty; all -inf / -1 for a shard without an entry.
+    iters is the beam's count (int32, 0 without an entry), for the caller
+    to add to `beam_steps` once it is on the host. upper is the shard's
+    top-first [Lu, cap, M] table or None."""
     dev = data.device
     q = q.to(dev)
     n_q = q.shape[0]
     if entry < 0:
         return (torch.full((n_q, ef), float("-inf"), device=dev),
-                torch.full((n_q, ef), -1, dtype=torch.int32, device=dev))
+                torch.full((n_q, ef), -1, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
     pack = DataPack(data, sq)
     ents = torch.full((n_q,), entry, dtype=torch.int32, device=dev)
     if upper is not None and upper.shape[0] > 0:
         ents = greedy_descend(q, pack, upper, ents, metric)
-    s, i = beam_search_layer(q, pack, links0, ents[:, None], ef=ef,
-                             expand=2, max_iters=2 * ef, metric=metric)
-    return s, i.to(torch.int32)
+    s, i, it = beam_search_layer(q, pack, links0, ents[:, None], ef=ef,
+                                 expand=2, max_iters=2 * ef, metric=metric)
+    return s, i.to(torch.int32), it
 
 
 def build_sharded_hnsw(mesh, ef: int, expand: int, metric: VectorMetric,
@@ -59,12 +63,16 @@ def build_sharded_hnsw(mesh, ef: int, expand: int, metric: VectorMetric,
 
     def fn(queries, data, sq, links0, upper, entries):
         cap = data[ctx.local_shards[0]].shape[0]
-        parts = []
+        parts, its = [], []
         for s in ctx.local_shards:
-            sc, li = shard_beam(queries, data[s], sq[s], links0[s],
-                                upper[s], int(entries[s]), ef, metric)
+            sc, li, it = shard_beam(queries, data[s], sq[s], links0[s],
+                                    upper[s], int(entries[s]), ef, metric)
             parts.append((sc, torch.where(li >= 0, li + s * cap, -1)))
-        return ctx.merge(parts, ef)
+            its.append(it)
+        out = ctx.merge(parts, ef)
+        beam_steps.add(int(torch.stack([x.to(out[0].device)
+                                        for x in its]).sum()))
+        return out
 
     return fn
 

@@ -17,10 +17,12 @@ runs as its own tests run it). Tolerances, with their reasons:
     heuristic may decide a link otherwise), recall@10 within 0.02 of the
     reference's at ef 16, 32 and 64.
 The `cuda` tests run the engine on the card against the engine on the CPU
-(searches that replay cached CUDA graphs too, after mutations, in
+(searches whose descent replays cached CUDA graphs too, after mutations, in
 streaming sessions and on a one-card mesh; the graphs bit-identical to
-their eager chains of kernels) and skip without one; the JAX package is
-imported lazily, so they run where JAX is absent:
+their eager chains of kernels), and the beam's kernel K7 against its plain
+twin on the card, bit for bit on rows of small integers (every fp32 sum
+exact in any order), and skip without one; the JAX package is imported
+lazily, so they run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_hnsw.py
@@ -141,7 +143,7 @@ def test_beam_search_layer_matches_reference(metric, quantized):
             ef=ef, expand=2, max_iters=2 * ef, metric=rm)
         got = pk.beam_search_layer(t(q), pp, t(links), t(ent), ef, 2,
                                    2 * ef, pm)
-        assert_same_topk(*want, *got)
+        assert_same_topk(*want, *got[:2])
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "sq8"])
@@ -227,10 +229,44 @@ def test_beam_loop_syncs_once_every_sync_every_steps():
     pk.beam_steps.reset()
     out = pk.beam_search_resume(t(q), pp, t(links), *got, 64, 2, 128, pm)
     iters = int(out[5])
-    assert pk.beam_steps.value == iters > pk.SYNC_EVERY
+    # the beam returns its count; its caller adds it once on the host
+    assert iters > pk.SYNC_EVERY and pk.beam_steps.value == 0
     # one read after each block of SYNC_EVERY steps, the last one finding
     # the loop stopped
     assert pk.host_syncs.value == -(-iters // pk.SYNC_EVERY)
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["engine", "mesh"])
+def test_search_adds_its_beam_count_at_drain(mesh, monkeypatch):
+    """A search brings its beams' counts back in its one result copy and
+    adds them to `beam_steps` when it drains, not before: the sum of the
+    `it` its beams returned (one beam, or one a shard)."""
+    from reindexer_tpu_torch.parallel import sharded_hnsw
+    from reindexer_tpu_torch.parallel.context import MeshContext
+    rng = np.random.default_rng(22)
+    base = rng.normal(size=(300, 8)).astype(np.float32)
+    ix = HnswIndex(hnsw_def(port, 8, "L2"), CPU)
+    if mesh:
+        ix.attach_mesh(MeshContext(["cpu"] * 2))
+    for i in range(300):
+        ix.upsert(i, base[i])
+    ix.commit()
+    its = []
+
+    def beam(*args, **kw):
+        out = pk.beam_search_layer(*args, **kw)
+        its.append(int(out[2]))
+        return out
+    monkeypatch.setattr(port_hnsw, "beam_search_layer", beam)
+    monkeypatch.setattr(sharded_hnsw, "beam_search_layer", beam)
+    pk.beam_steps.reset()
+    drain = ix._search_batch_async(
+        rng.normal(size=(3, 8)).astype(np.float32), 32)
+    assert len(its) == (2 if mesh else 1) and min(its) > 0
+    assert pk.beam_steps.value == 0
+    scores, ids = drain()
+    assert pk.beam_steps.value == sum(its)
+    assert scores.shape == ids.shape == (3, 32) and (ids[:, 0] >= 0).all()
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "sq8"])
@@ -262,20 +298,21 @@ def test_greedy_descend_matches_reference(metric, quantized):
 
 
 @pytest.mark.parametrize("change", ["nothing", "links", "queries", "metric",
-                                    "pack", "sync_every"])
+                                    "pack", "sync_every", "descent_hops"])
 def test_graph_key_changes_with_what_a_graph_bakes_in(change, monkeypatch):
-    """The key of a cached search graph: the same shapes and tensors give
+    """The key of a cached descent graph: the same shapes and tensors give
     the same key (queries and entries are copied in, so only their shapes
-    count); another links tensor, another padded Q, another metric, another
-    vector table or another block length gives another."""
+    count); another link stack, another padded Q, another metric, another
+    vector table or another hop budget gives another. The plain beam's
+    block length gives the same: the beam on the card is K7, no graph."""
     data, sq = torch.zeros(300, 16), torch.zeros(300)
-    links = torch.zeros((300, 8), dtype=torch.int32)
+    links = torch.zeros((2, 300, 8), dtype=torch.int32)
 
     def key(q, links, metric, pack):
-        ents = torch.zeros((q.shape[0], 1), dtype=torch.int32)
-        return pk._graph_key("beam.layer",
-                             pk._shapes(q, ents) + (128, 2, 256), metric,
-                             pack, links)
+        ents = torch.zeros(q.shape[0], dtype=torch.int32)
+        return pk._graph_key("descent",
+                             pk._shapes(q, ents) + (pk.DESCENT_HOPS,),
+                             metric, pack, links)
     first = key(torch.zeros(8, 16), links, VectorMetric.L2,
                 pk.DataPack(data, sq))
     args = dict(q=torch.ones(8, 16), links=links, metric=VectorMetric.L2,
@@ -289,7 +326,9 @@ def test_graph_key_changes_with_what_a_graph_bakes_in(change, monkeypatch):
         args[name] = value
     if change == "sync_every":
         monkeypatch.setattr(pk, "SYNC_EVERY", pk.SYNC_EVERY * 2)
-    assert (key(**args) == first) == (change == "nothing")
+    if change == "descent_hops":
+        monkeypatch.setattr(pk, "DESCENT_HOPS", pk.DESCENT_HOPS * 2)
+    assert (key(**args) == first) == (change in ("nothing", "sync_every"))
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -997,30 +1036,45 @@ def _deltas(counters, before):
                                           ("INNER_PRODUCT", False),
                                           ("INNER_PRODUCT", True)],
                          ids=["l2", "ip", "sq8"])
-def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q):
-    """Searches of one shape replay the graphs the first one captured: with
-    a new query set each time, the same ids as the CPU engine (near-ties
-    aside), ranks within rtol 1e-4, the same beam steps and host reads; and
-    the descent (with one hop of budget too, so that layers run again) and
-    the beam bit-identical to their eager chains of kernels on the card."""
+def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q,
+                                              monkeypatch):
+    """Searches of one shape replay the descent's graph the first one
+    captured: with a new query set each time, the same ids as the CPU
+    engine (near-ties aside), ranks within rtol 1e-4, the same beam steps
+    and the same host reads in the descent, the card's only ones (its beam
+    is K7, which reads no stop flag); and the descent (with one hop of
+    budget too, so that layers run again) bit-identical to its eager chain
+    of kernels on the card, the beam's results K7's twin's."""
     _need_cuda()
     cpu, gpu, _, rng = _cpu_and_cuda(quant, metric=metric)
     p = HnswSearchParams(k=10, ef=128)
     counters = (pk.graph_captures, pk.beam_steps, pk.host_syncs)
+    descent_syncs = []
+
+    def descend(*args, **kw):
+        before = pk.host_syncs.value
+        out = pk.greedy_descend(*args, **kw)
+        descent_syncs[-1] += pk.host_syncs.value - before
+        return out
+    monkeypatch.setattr(port_hnsw, "greedy_descend", descend)
     for rnd in range(3):
         qs = rng.normal(size=(n_q, 32)).astype(np.float32)
         counts = []
         for ix in (cpu, gpu):
             before = [c.value for c in counters]
+            descent_syncs.append(0)
             res = ix.select_batch(qs, p)
             counts.append(_deltas(counters, before))
             if ix is cpu:
                 want = res
         for a, b in zip(want, res):
             assert_same(a, b)
-        assert counts[0][1:] == counts[1][1:] and counts[0][1] > 0, counts
-        # a miss captures the descent's pass and the beam's two blocks
-        assert counts[1][0] == (3 if rnd == 0 else 0), counts
+        assert counts[0][1] == counts[1][1] > 0, counts
+        assert counts[1][2] == descent_syncs[-1] == descent_syncs[-2] > 0, (
+            counts, descent_syncs)
+        assert counts[0][2] > descent_syncs[-2], (counts, descent_syncs)
+        # a miss captures the descent's pass, and only it
+        assert counts[1][0] == (1 if rnd == 0 else 0), counts
 
     pack, links, m = gpu._pack(for_search=True), gpu._d_links0, gpu.metric
     q = torch.from_numpy(qs).to(links.device)
@@ -1037,20 +1091,22 @@ def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q):
                                  pk._entry_scores(q, pack, ents, m), 0,
                                  hops, 64, m)
         assert torch.equal(graphed, eager), hops
-    s, i = pk.beam_search_layer(q, pack, links, eager[:, None], 128, 2, 256,
-                                m)
-    state, _, block, _ = pk._beam_program("layer", [q, eager[:, None]], pack,
-                                          links, 128, 2, 256, m)
-    pk._run_blocks(state, block, block)
-    assert torch.equal(s, state[0]) and torch.equal(i, state[1])
+    s, i, _ = pk.beam_search_layer(q, pack, links, eager[:, None], 128, 2,
+                                   256, m)
+    state, block = pk._beam_program("layer", [q, eager[:, None]], pack,
+                                    links, 128, 2, 256, m)
+    pk._run_blocks(state, block)
+    # fp32 sums in another order than the twin's: near-ties may swap
+    assert_same_topk(state[0].cpu(), state[1].cpu(), s.cpu(), i.cpu())
 
 
 @pytest.mark.cuda
 def test_cuda_cache_captures_again_after_a_rebuild_and_a_growth():
     """An upsert that rebuilds the link mirror, and one that grows the
-    keeper, give the next search new tensors: it captures again, matches
-    the CPU engine, and the cache keeps no stale entry and no reference to
-    the old tensors, within its bound."""
+    keeper, give the next search new tensors: its descent captures again,
+    the search matches the CPU engine, and the cache keeps no stale entry,
+    no entry but the descent's and no reference to the old tensors, within
+    its bound."""
     _need_cuda()
     cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
     p = HnswSearchParams(k=10, ef=64)
@@ -1072,6 +1128,7 @@ def test_cuda_cache_captures_again_after_a_rebuild_and_a_growth():
         gc.collect()
         assert len(ctx.entries) <= pk.CACHE_ENTRIES
         assert not any(e.stale() for e in ctx.entries.values())
+        assert all(k[0] == "descent" for k in ctx.entries)
         return old
 
     links, _ = mutate(range(1, 6))
@@ -1085,8 +1142,9 @@ def test_cuda_cache_captures_again_after_a_rebuild_and_a_growth():
 @pytest.mark.cuda
 def test_cuda_concurrent_searches_share_the_cache():
     """Sixteen threads search one index at once, with four query shapes,
-    so that they take turns on the device's cache entries: every answer
-    equals the one the same search gave alone."""
+    so that their descents take turns on the device's cache entries and
+    their K7 launches interleave: every answer equals the one the same
+    search gave alone, and the cache holds the descent's entries only."""
     _need_cuda()
     _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
     p = HnswSearchParams(k=10, ef=64)
@@ -1120,6 +1178,8 @@ def test_cuda_concurrent_searches_share_the_cache():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert not wrong, wrong
+    ctx = pk._graph_ctx(gpu._d_links0.device)
+    assert ctx.entries and all(k[0] == "descent" for k in ctx.entries)
 
 
 @pytest.mark.cuda
@@ -1169,3 +1229,167 @@ def test_cuda_one_card_mesh_matches_cpu_mesh():
         assert (pk.graph_captures.value == before) == (rnd == 1)
         for a, b in zip(idx["cpu"].select_batch(qs, p), got):
             assert_same(a, b)
+
+
+def _int_graph(rng, n_rows, dims, m0, quant, dev):
+    """Rows of small integer coordinates (SQ8: integer codes, offsets and
+    scales), so that every fp32 sum is exact in any order; links with -1
+    slots, and rows with none (deleted rows, rows outside the layer).
+    Returns (pack, links) on dev."""
+    links = rng.integers(-1, n_rows, size=(n_rows, m0)).astype(np.int32)
+    links[rng.random(n_rows) < 0.05] = -1
+    if quant:
+        codes = rng.integers(0, 8, size=(n_rows, dims)).astype(np.uint8)
+        lo = rng.integers(-2, 3, size=dims).astype(np.float32)
+        alpha = rng.integers(1, 3, size=dims).astype(np.float32)
+        deq = lo + alpha * codes.astype(np.float32)
+        arrs = (codes, (deq * deq).sum(axis=1), lo, alpha)
+    else:
+        data = rng.integers(-3, 4, size=(n_rows, dims)).astype(np.float32)
+        arrs = (data, (data * data).sum(axis=1))
+    return (pk.DataPack(*(t(a).to(dev) for a in arrs)),
+            t(links).to(dev))
+
+
+def _k7_case(kind, quant, metric, n_q, ef, dims=16, n_rows=600, m0=16,
+             seed=0):
+    """(queries, pack, links, inputs, metric) of one K7 case on the card:
+    integer queries, every third row zero (a padded batch), three entries
+    a query, some -1; "resume" continues a layer search stopped after three
+    plain steps (W and C sorted, some bits visited)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    pack, links = _int_graph(rng, n_rows, dims, m0, quant, dev)
+    q = rng.integers(-3, 4, size=(n_q, dims)).astype(np.float32)
+    q[::3] = 0
+    q = t(q).to(dev)
+    ent = rng.integers(-1, n_rows, size=(n_q, 3)).astype(np.int32)
+    ent[:, 0] = np.abs(ent[:, 0])
+    inputs = (t(ent).to(dev),)
+    m = VectorMetric[metric]
+    if kind == "resume":
+        state, block = pk._beam_program("layer", [q, *inputs], pack, links,
+                                        ef, 2, 3, m)
+        pk._run_blocks(state, block)
+        inputs = tuple(state[:5])
+    return q, pack, links, inputs, m
+
+
+def _k7_against_twin(kind, q, pack, links, inputs, ef, m):
+    before = pk.hnsw_beam_launches.value
+    got = pk.hnsw_beam(kind, q, pack, links, inputs, ef, 2, 2 * ef, m)
+    assert pk.hnsw_beam_launches.value == before + 1
+    state, block = pk._beam_program(kind, [q, *inputs], pack, links, ef, 2,
+                                    2 * ef, m)
+    pk._run_blocks(state, block)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("w_s", "w_ids", "c_s", "c_ids", "visited", "it"),
+                          got, state):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), (name, int(got[5]), int(state[5]))
+    assert int(got[5]) > 0
+
+
+def _past_resident_blocks() -> int:
+    """More queries than K7's grid can hold blocks at once (an SM holds at
+    most 32 resident blocks), so that every block walks several."""
+    props = torch.cuda.get_device_properties(0)
+    return 32 * props.multi_processor_count + 37
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [16, 128, 512])
+@pytest.mark.parametrize("n_q", [1, 8, 64, 200, "past_grid"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "sq8"])
+@pytest.mark.parametrize("kind", ["layer", "resume"])
+def test_cuda_k7_matches_its_twin(kind, quant, metric, n_q, ef):
+    """K7 against the plain loop it replaces, both on the card: W, C, the
+    visited words and `it` bit for bit (ties in the stable sort's order).
+    13 dimensions take the scalar loads, 16 the vector ones; "past_grid"
+    is more queries than the blocks that can be resident at once, so that
+    each block walks several queries."""
+    _need_cuda()
+    dims = 16 if n_q in (1, 64) else 13
+    if n_q == "past_grid":
+        n_q = _past_resident_blocks()
+    q, pack, links, inputs, m = _k7_case(kind, quant, metric, n_q, ef,
+                                         dims=dims, seed=n_q + ef)
+    _k7_against_twin(kind, q, pack, links, inputs, ef, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wide_ef", "wide_ef_sq8_resume",
+                                  "wide_dims"])
+def test_cuda_k7_spills_past_shared_memory(case):
+    """Where a block's arrays outgrow its shared memory (an ef of 16,384 at
+    16 dimensions, or 60,000 dimensions at ef 16), K7 takes a global
+    scratch in their place and still matches its twin bit for bit; at ef
+    8,192 and 16 dimensions it needs none."""
+    _need_cuda()
+    from reindexer_tpu_torch.ops import _build
+    lib = _build.load("hnsw_beam")
+    assert lib.hnsw_beam_spill_bytes(8, 16, 32, 8192, 0) == 0
+    kind = "resume" if case.endswith("resume") else "layer"
+    quant = "sq8" in case
+    dims, ef = (60_000, 16) if case == "wide_dims" else (16, 16384)
+    assert lib.hnsw_beam_spill_bytes(8, dims, 32, ef, int(quant)) > 0
+    q, pack, links, inputs, m = _k7_case(kind, quant, "L2", 8, ef,
+                                         dims=dims, seed=ef)
+    _k7_against_twin(kind, q, pack, links, inputs, ef, m)
+
+
+@pytest.mark.cuda
+def test_cuda_search_past_shared_memory_matches_cpu_engine():
+    """A select at an ef whose beam spills past shared memory (10,000,
+    padded to 16,384) runs on the card and answers as the CPU engine."""
+    _need_cuda()
+    cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    qs = rng.normal(size=(3, 32)).astype(np.float32)
+    p = HnswSearchParams(k=10, ef=10_000)
+    before = pk.hnsw_beam_launches.value
+    got = gpu.select_batch(qs, p)
+    assert pk.hnsw_beam_launches.value == before + 1
+    for a, b in zip(cpu.select_batch(qs, p), got):
+        assert_same(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_search_launches_k7_once(monkeypatch):
+    """A search on the card launches K7 once and captures no beam graph:
+    the first search of its shape captures the descent's pass alone, the
+    next nothing, and every host read of a stop flag is the descent's."""
+    _need_cuda()
+    _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    assert gpu._max_level > 0
+    p = HnswSearchParams(k=10, ef=64)
+    counters = (pk.hnsw_beam_launches, pk.graph_captures, pk.host_syncs)
+    descent_syncs = []
+
+    def descend(*args, **kw):
+        before = pk.host_syncs.value
+        out = pk.greedy_descend(*args, **kw)
+        descent_syncs.append(pk.host_syncs.value - before)
+        return out
+    monkeypatch.setattr(port_hnsw, "greedy_descend", descend)
+    for rnd in range(2):
+        before = [c.value for c in counters]
+        gpu.select_batch(rng.normal(size=(8, 32)).astype(np.float32), p)
+        launches, captures, syncs = _deltas(counters, before)
+        assert launches == 1
+        assert captures == (1 if rnd == 0 else 0)
+        assert syncs == descent_syncs[-1] > 0
+
+
+def test_k7_counter_registered_and_nothing_built_at_import():
+    """`kernels.hnsw_beam` is a registered counter, and importing the ops
+    module builds and loads no kernel (a fresh interpreter: the CPU tests
+    import every module on a machine without nvcc)."""
+    import subprocess
+    code = ("from reindexer_tpu_torch import tracing\n"
+            "from reindexer_tpu_torch.ops import _build, hnsw_kernels\n"
+            "assert 'kernels.hnsw_beam' in tracing.counters()\n"
+            "assert hnsw_kernels.hnsw_beam_launches.value == 0\n"
+            "assert not _build._libs and not _build.build_info\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=str(__import__("pathlib").Path(__file__).parents[1]))
