@@ -87,9 +87,9 @@ Phases, in order; any failure raises, so the exit code is not 0:
  12. the HNSW main path: 64 queries, k=10, ef 32, 128 and 512, select_batch
      and 64 selects against a float64 oracle (ranks exact within rtol 1e-4,
      recall@10 >= 0.95 at ef 128, falling by no more than 0.005 as ef
-     grows); per ef the host ms, device ms, idle share, beam steps, host
-     syncs and device launches per search (the beam is K7, one launch a
-     search; the descent one graph replay and one host read);
+     grows); per ef the host ms, device ms, idle share, beam steps and
+     device launches per search (the descent and the beam, K7, one launch
+     each a search);
  13. SQ8 HNSW on the same graph: the store active, recall@10 >= 0.9 at ef
      128, ranks exact after the fp32 rescore; then K7 against its plain
      twin on the card at the main path's shape (64 queries, ef 128): bit
@@ -99,7 +99,13 @@ Phases, in order; any failure raises, so the exit code is not 0:
      near-tie), the rest with ids equal up to near-ties and scores within
      K7_SCORE_ATOL; K7's device ms, the eager twin's and K7's bound (rows
      scored, link rows and visited words over 3.35 TB/s); K7's launches
-     from the main path on join the kernel line;
+     from the main path on join the kernel line; the descent kernel
+     against its plain twin (on the CPU) bit for bit on the same integer
+     rows under four upper layers of 16 links (the top one all -1), then
+     on the deep-like graph at the main path's shape (64 queries, 96
+     dimensions, 16 links a row): entries equal to the twin's on the card
+     for all but K7_SPLIT_MAX queries, its device ms, the twin's and its
+     bound (the rows its hops scored and their link rows);
  14. the HNSW public API at bench_hnsw's size (20,000 x 96 IP, efC 128,
      db.upsert, 1,000 deletes): 64 selects, knn_batch(64) and an SQL KNN
      against the oracle with no deleted row, a streaming query (KNN with
@@ -1761,8 +1767,7 @@ K7_SPLIT_MAX = 4
 
 def hnsw_counters() -> dict:
     from reindexer_tpu_torch.ops import hnsw_kernels
-    return {"beam_steps": hnsw_kernels.beam_steps,
-            "host_syncs": hnsw_kernels.host_syncs}
+    return {"beam_steps": hnsw_kernels.beam_steps}
 
 
 def hnsw_def(name: str, dims: int, efc: int, quant: bool = False,
@@ -1933,7 +1938,7 @@ def profile_launches(fn, n: int = 3) -> tuple[float, float, int]:
 def phase_hnsw_main(card: str, ix, base, queries) -> None:
     """The HNSW main path: select_batch(64) and 64 selects at every ef,
     against the float64 oracle; per ef the host and device ms, idle share,
-    beam steps, host syncs and device launches per search."""
+    beam steps and device launches per search."""
     from reindexer_tpu_torch import HnswSearchParams
     counters = hnsw_counters()
     s64, top = hnsw_oracle(base, queries, ix.keeper.device)
@@ -1963,7 +1968,6 @@ def phase_hnsw_main(card: str, ix, base, queries) -> None:
                                      f"ef={ef}")
             prev[entry] = recall
             steps = counters["beam_steps"].value / searches
-            syncs = counters["host_syncs"].value / searches
             fn = (lambda: ix.select_batch(queries, p)) \
                 if entry == "select_batch" else (lambda: ix.select(
                     queries[0], p))
@@ -1971,8 +1975,7 @@ def phase_hnsw_main(card: str, ix, base, queries) -> None:
             row[entry] = (f"{entry}: recall@{HNSW_K} {recall:.4f}, host "
                           f"{host_ms:.3f} ms, device {busy:.4f} ms, idle "
                           f"share {idle:.4f}, {steps:.1f} beam steps, "
-                          f"{syncs:.2f} host syncs, {events} device "
-                          "launches per search")
+                          f"{events} device launches per search")
         log(f"[hnsw main] ef {ef} (beam width {max(16, 1 << (ef - 1).bit_length())}"
             f"): " + "; ".join(row.values()) + f" on {card}")
     log(f"[hnsw main] select_batch({len(queries)}) and {len(queries)} "
@@ -2158,14 +2161,12 @@ def k7(q, pack, links, entries, metric):
 
 
 def k7_twin(q, pack, links, entries, metric):
-    """K7's plain twin (_beam_program + _run_blocks, eager) on the same
-    inputs: the same six tensors."""
+    """K7's plain twin (_beam_plain, eager) on the same inputs: the same
+    six tensors."""
     from reindexer_tpu_torch.ops import hnsw_kernels as pk
     ef = HNSW_K7_EF
-    state, block = pk._beam_program("layer", [q, entries], pack, links, ef,
-                                    2, 2 * ef, metric)
-    pk._run_blocks(state, block)
-    return state[:6]
+    return pk._beam_plain("layer", q, pack, links, (entries,), ef, 2, 2 * ef,
+                          metric)
 
 
 def k7_and_twin(q, pack, links, entries, metric):
@@ -2192,6 +2193,9 @@ def k7_exact(dev) -> str:
     q[::3] = 0
     ents = rng.integers(0, n, size=(HNSW_Q, 1)).astype(np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    stack = rng.integers(-1, n, size=(4, n, HNSW_M)).astype(np.int32)
+    stack[0] = -1
+    stack[:, rng.random(n) < 0.05] = -1
     out = []
     for quant in (False, True):
         if quant:
@@ -2213,10 +2217,81 @@ def k7_exact(dev) -> str:
                         f"[hnsw kernel] K7 differs from its twin in {name} "
                         f"on integer rows ({'SQ8' if quant else 'fp32'}, "
                         f"{metric.name})")
+            moved = descend_exact(t(q), pack, t(stack), t(ents[:, 0]), metric)
             out.append(f"{'SQ8' if quant else 'fp32'} {metric.name} "
-                       f"{int(got[5])} steps")
+                       f"{int(got[5])} steps, descent {moved} of {HNSW_Q} "
+                       "queries moved")
         del pack
     return ", ".join(out)
+
+
+def descend_exact(q, pack, stack, ents, metric) -> int:
+    """The descent kernel against its plain twin on the CPU, bit for bit
+    (integer rows: exact sums, many ties); returns the queries that
+    moved."""
+    from reindexer_tpu_torch.ops import hnsw_kernels as pk
+    got = pk.hnsw_descend(q, pack, stack, ents, 64, metric).cpu()
+    cpu = pk.DataPack(*(None if x is None else x.cpu() for x in (
+        pack.data, pack.data_sq, pack.lo, pack.alpha)))
+    want = pk._descend_plain(q.cpu(), cpu, stack.cpu(), ents.cpu(), 64,
+                             metric)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"[hnsw kernel] the descent differs from its twin in "
+            f"{int((got != want).sum())} of {len(got)} entries on integer "
+            f"rows ({'SQ8' if pack.quantized else 'fp32'}, {metric.name})")
+    return int((got != ents.cpu()).sum())
+
+
+def descend_real(tag: str, ix, queries, metric) -> tuple[dict, str]:
+    """The descent kernel on the index's own upper layers against its
+    plain twin on the card: entries equal for all but K7_SPLIT_MAX queries
+    (fp32 sums in another order); then its device ms (and CUDA-event ms,
+    launch included), the twin's, and its bound: the link rows and rows
+    its hops read, over 3.35 TB/s. Returns (stats, summary)."""
+    from reindexer_tpu_torch.ops import hnsw_kernels as pk
+    dev = ix.keeper.device
+    q = torch.from_numpy(np.stack([ix.keeper.prepare_query(v)
+                                   for v in queries])).to(dev)
+    pack = ix._pack(for_search=True)
+    stack = ix._d_upper
+    ents = torch.full((len(queries),), ix._entry, dtype=torch.int32,
+                      device=dev)
+    got = pk.hnsw_descend(q, pack, stack, ents, 64, metric)
+    want = pk._descend_plain(q, pack, stack, ents, 64, metric)
+    split = int((got != want).sum())
+    if split > K7_SPLIT_MAX:
+        raise AssertionError(f"[hnsw kernel] {tag}: the descent differs from"
+                             f" its twin in {split} of {len(queries)} entries")
+    # every query's hops: each that moved it and the one that ended a layer
+    cur, cur_s = ents, pk._entry_scores(q, pack, ents, metric)
+    hops = 0
+    for links in stack:
+        live = torch.ones_like(cur, dtype=torch.bool)
+        for _ in range(64):
+            cur, cur_s, imp = pk._descend_hop(q, pack, links, cur, cur_s,
+                                              metric)
+            hops += int(live.sum())
+            live &= imp
+            if not live.any():
+                break
+    m = stack.shape[2]
+    # a hop reads a link row and its rows (inner product: no |v|^2)
+    n_bytes = hops * m * (4 + HNSW_D * (1 if pack.quantized else 4))
+    least = bound(n_bytes, 2.0 * hops * m * HNSW_D, "fp32")
+    fn = lambda: pk.hnsw_descend(q, pack, stack, ents, 64, metric)
+    ms = device_ms(fn, n=20)
+    event_ms = cuda_time_ms(fn)
+    plain_ms = device_ms(lambda: pk._descend_plain(q, pack, stack, ents, 64,
+                                                   metric), n=2)
+    stats = {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms, **least}
+    return stats, (
+        f"{tag} descent: {stack.shape[0]} upper layers of {m} links, {hops} "
+        f"hops in all ({hops / len(queries):.2f} a query), {len(queries) - split}"
+        f"/{len(queries)} entries the twin's; kernel {ms:.4f} ms device, "
+        f"{event_ms:.4f} ms by CUDA events (launch included), the eager "
+        f"twin {plain_ms:.4f} ms device, bound {least['bound_ms']:.6f} ms by "
+        f"{least['bound_by']} ({least['bound_ms'] / ms:.2%})")
 
 
 def k7_real(tag: str, ix, queries, metric) -> tuple[dict, str]:
@@ -2301,6 +2376,9 @@ def phase_hnsw_kernel(card: str, ix, sq, queries) -> dict:
         log(f"[hnsw kernel] {HNSW_N} x {HNSW_D} graph, {HNSW_Q} queries, ef "
             f"{HNSW_K7_EF}, {summary} on {card}")
         stats = stats or st
+        _, summary = descend_real(tag, index, queries, index.metric)
+        log(f"[hnsw kernel] {HNSW_N} x {HNSW_D} graph, {HNSW_Q} queries, "
+            f"{summary} on {card}")
     return stats
 
 

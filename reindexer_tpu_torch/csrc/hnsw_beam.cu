@@ -1,9 +1,11 @@
 // K7 `hnsw_beam`: the whole batched HNSW beam search of one graph layer in
-// one persistent, cooperatively launched kernel, for Hopper (sm_90a).
+// one persistent, cooperatively launched kernel, for Hopper (sm_90a); and
+// beside it `hnsw_descend`, the greedy descent through the upper layers
+// that picks the beam's entries (at the end of this file's kernels).
 //
 // Replaces no TPU kernel: the JAX package's beam is plain XLA, the
 // `lax.while_loop` of reindexer_tpu/ops/hnsw_kernels.py::_beam_loop. Its
-// plain PyTorch twin is ops/hnsw_kernels.py::_beam_program (one step,
+// plain PyTorch twin is ops/hnsw_kernels.py::_beam_plain (one step,
 // `_beam_step`, is ~60 small kernels), which the CPU runs and the tests
 // hold this kernel to, bit for bit where fp32 sums are exact.
 //
@@ -104,6 +106,9 @@ struct Params {
   unsigned char* spill;    // [grid, spill_block] or null (shared memory)
   size_t spill_block;
   int Q, D, M0, E0, ef, expand, max_iters, n_words, l2;
+  // the descent: links is the top-first stack [Lu, N, M0], entry [Q]
+  int* out;                // [Q] the layer-0 entries
+  int Lu, N, max_hops;
 };
 
 // per-block scalars in static shared memory
@@ -582,11 +587,80 @@ __global__ void __launch_bounds__(THREADS)
   if (blockIdx.x == 0 && threadIdx.x == 0) p.ctl[CTL_IT] = it;
 }
 
+// The greedy descent (ops/hnsw_kernels.py::greedy_descend), a block a
+// query: from the entry, on each layer of the top-first stack, at most
+// max_hops hops; a hop scores the M0 links of `cur` (skipping -1) with
+// K7's scoring, takes the best score, the lowest link slot among equals
+// (torch.max's and jnp.argmax's rule), and moves only when it is strictly
+// greater than cur's; the layer ends at the first hop with no move. A query
+// that did not move at a hop finds the same links at the next, so this
+// per-query stop gives the JAX loop's batch-wide stop exactly. Each hop is
+// a dependent chain (a link row, then its rows), a few us; the whole
+// descent is one launch and the host reads nothing.
+template <bool SQ8>
+__global__ void __launch_bounds__(THREADS)
+    hnsw_descend_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  __shared__ float qsq, qlo, cur_s;
+  __shared__ int cur, moved;
+  unsigned char* at =
+      p.spill != nullptr ? p.spill + blockIdx.x * p.spill_block : raw;
+  const int qi = blockIdx.x, M = p.M0;
+  Smem sm = {};
+  sm.qv = (float*)at;
+  sm.ns = (float*)(at + align16(4 * (size_t)p.D));
+  sm.nb = (int*)((unsigned char*)sm.ns + align16(4 * (size_t)M));
+  load_query<SQ8>(p, sm, qi, &qsq, &qlo);
+  if (threadIdx.x == 0) sm.nb[0] = cur = p.entry[qi];
+  __syncthreads();
+  score_rows<SQ8>(p, sm, sm.nb, sm.ns, 1, qsq, qlo);
+  if (threadIdx.x == 0) cur_s = sm.ns[0];
+  for (int l = 0; l < p.Lu; ++l) {
+    const int* links = p.links + (size_t)l * p.N * M;
+    for (int hop = 0; hop < p.max_hops; ++hop) {
+      __syncthreads();
+      const int c0 = cur;
+      for (int c = threadIdx.x; c < M; c += THREADS)
+        sm.nb[c] = c0 >= 0 ? links[(size_t)c0 * M + c] : -1;
+      __syncthreads();
+      score_rows<SQ8>(p, sm, sm.nb, sm.ns, M, qsq, qlo);
+      if (threadIdx.x < 32) {
+        float bs = neg_inf();
+        int bc = M;
+        for (int c = threadIdx.x; c < M; c += 32)
+          if (sm.ns[c] > bs) bs = sm.ns[c], bc = c;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float s2 = __shfl_xor_sync(0xffffffffu, bs, o);
+          const int c2 = __shfl_xor_sync(0xffffffffu, bc, o);
+          if (s2 > bs || (s2 == bs && c2 < bc)) bs = s2, bc = c2;
+        }
+        if (threadIdx.x == 0) {
+          moved = bs > cur_s;
+          if (moved) cur = sm.nb[bc], cur_s = bs;
+        }
+      }
+      __syncthreads();
+      if (!moved) break;
+    }
+  }
+  if (threadIdx.x == 0) p.out[qi] = cur;
+}
+
 size_t dyn_smem(int D, int K, int ef) {
   size_t sz[10], n = 0;
   smem_sizes(D, K, ef, sz);
   for (size_t x : sz) n += x;
   return n;
+}
+
+// the descent's arrays: the query, M0 scores and M0 link ids
+size_t descend_smem(int D, int M0) {
+  return align16(4 * (size_t)D) + 2 * align16(4 * (size_t)M0);
+}
+
+bool fits_smem(size_t need) {
+  return need <= (size_t)(SMEM_MAX - SMEM_RESERVE);
 }
 
 // The launch's shape: dynamic shared memory (0 when the arrays spill), the
@@ -597,15 +671,19 @@ struct Shape {
   int grid;
 };
 
+// a block's `need` bytes of arrays in dynamic shared memory, or in a spill
+cudaError_t smem_shape(void (*kernel)(const Params), size_t need, Shape* s) {
+  const bool fits = fits_smem(need);
+  s->smem = fits ? (int)need : 0;
+  s->spill_block = fits ? 0 : need;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
+}
+
 cudaError_t launch_shape(int Q, int D, int K, int ef, int sq8, Shape* s) {
   void (*kernel)(const Params) =
       sq8 ? hnsw_beam_kernel<true> : hnsw_beam_kernel<false>;
-  const size_t need = dyn_smem(D, K, ef);
-  const bool fits = need <= (size_t)(SMEM_MAX - SMEM_RESERVE);
-  s->smem = fits ? (int)need : 0;
-  s->spill_block = fits ? 0 : need;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
+  cudaError_t e = smem_shape(kernel, dyn_smem(D, K, ef), s);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -687,6 +765,53 @@ extern "C" int hnsw_beam_launch(
                                   dim3(THREADS), args, (size_t)shape.smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The bytes of global scratch a descent at these sizes takes (its
+// `spill`): 0 where a block's arrays fit its shared memory.
+extern "C" long long hnsw_descend_spill_bytes(int Q, int D, int M0) {
+  if (Q <= 0 || D <= 0 || M0 <= 0) return 0;
+  const size_t need = descend_smem(D, M0);
+  return fits_smem(need) ? 0 : (long long)(need * (size_t)Q);
+}
+
+// Launches the descent on `stream`; returns the first CUDA error (0 on
+// success). q, data, data_sq, lo, alpha as K7's; links i32[Lu, N, M0] top
+// first; entry i32[Q], valid rows; out i32[Q]; spill
+// hnsw_descend_spill_bytes(Q, D, M0) bytes, or null where that is 0. All
+// contiguous on one device.
+extern "C" int hnsw_descend_launch(
+    const void* q, const void* data, const void* data_sq, const void* lo,
+    const void* alpha, const void* links, const void* entry, void* out,
+    void* spill, int Q, int D, int M0, int Lu, int N, int max_hops, int l2,
+    int sq8, void* stream) {
+  if (Q < 0 || D <= 0 || M0 <= 0 || Lu < 0 || N <= 0 || max_hops < 0 ||
+      entry == nullptr || out == nullptr ||
+      (sq8 && (lo == nullptr || alpha == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0) return 0;
+  void (*kernel)(const Params) =
+      sq8 ? hnsw_descend_kernel<true> : hnsw_descend_kernel<false>;
+  Shape shape;
+  cudaError_t e = smem_shape(kernel, descend_smem(D, M0), &shape);
+  if (e != cudaSuccess) return (int)e;
+  if ((shape.spill_block > 0) != (spill != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.q = (const float*)q;
+  p.data = data;
+  p.data_sq = (const float*)data_sq;
+  p.lo = (const float*)lo;
+  p.alpha = (const float*)alpha;
+  p.links = (const int*)links;
+  p.entry = (const int*)entry;
+  p.out = (int*)out;
+  p.spill = (unsigned char*)spill;
+  p.spill_block = shape.spill_block;
+  p.Q = Q, p.D = D, p.M0 = M0, p.l2 = l2;
+  p.Lu = Lu, p.N = N, p.max_hops = max_hops;
+  kernel<<<Q, THREADS, shape.smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,9 @@ _LAUNCH_ARGTYPES = {
 _EXTRA_FUNCS = {
     "sq8_select": {"sq8_select_scratch_bytes": ([_I, _I], _L)},
     "ivf_seg_scan": {"ivf_seg_scan_scratch_ints": ([_I, _I, _I], _L)},
-    "hnsw_beam": {"hnsw_beam_spill_bytes": ([_I] * 5, _L)},
+    "hnsw_beam": {"hnsw_beam_spill_bytes": ([_I] * 5, _L),
+                  "hnsw_descend_spill_bytes": ([_I] * 3, _L),
+                  "hnsw_descend_launch": ([_P] * 9 + [_I] * 8 + [_P], _I)},
 }
 
 _lock = threading.Lock()

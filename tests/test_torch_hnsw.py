@@ -17,22 +17,20 @@ runs as its own tests run it). Tolerances, with their reasons:
     heuristic may decide a link otherwise), recall@10 within 0.02 of the
     reference's at ef 16, 32 and 64.
 The `cuda` tests run the engine on the card against the engine on the CPU
-(searches whose descent replays cached CUDA graphs too, after mutations, in
-streaming sessions and on a one-card mesh; the graphs bit-identical to
-their eager chains of kernels), and the beam's kernel K7 against its plain
-twin on the card, bit for bit on rows of small integers (every fp32 sum
-exact in any order), and skip without one; the JAX package is imported
-lazily, so they run where JAX is absent:
+(repeated and concurrent searches, streaming sessions, a one-card mesh;
+one descent launch and one K7 launch a search, no host read of a stop
+flag), and the two kernels, K7 and the descent, against their plain twins
+on the card, bit for bit on rows of small integers (every fp32 sum exact
+in any order), and skip without one; the JAX package is imported lazily,
+so they run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_hnsw.py
 """
 import functools
-import gc
 import sys
 import threading
 import types
-import weakref
 
 import numpy as np
 import pytest
@@ -219,21 +217,29 @@ def test_zero_row_keeps_the_loop_running():
 
 
 def test_beam_loop_syncs_once_every_sync_every_steps():
+    """The beam returns its count `it` (an int32 tensor) and does not add
+    it to `beam_steps`: its caller does, once the count is on the host.
+    The plain loop reads its condition once before each step and once
+    after the last."""
     rm, pm = metrics("L2")
     rng = np.random.default_rng(4)
     _, pp, links = make_graph(rng, n_rows=500)
     q = rng.normal(size=(8, 16)).astype(np.float32)
     got = pk.beam_begin_stream(t(q), pp, t(np.full((8, 1), 3, np.int32)),
                                500, 64, pm)
-    pk.host_syncs.reset()
     pk.beam_steps.reset()
-    out = pk.beam_search_resume(t(q), pp, t(links), *got, 64, 2, 128, pm)
+    from reindexer_tpu_torch import tracing
+    tracing.configure(keep=True)
+    try:
+        out = pk.beam_search_resume(t(q), pp, t(links), *got, 64, 2, 128,
+                                    pm)
+        reads = sum(s[0] == "hnsw.stop_read" for s in tracing.take())
+    finally:
+        tracing.configure(None)
     iters = int(out[5])
-    # the beam returns its count; its caller adds it once on the host
-    assert iters > pk.SYNC_EVERY and pk.beam_steps.value == 0
-    # one read after each block of SYNC_EVERY steps, the last one finding
-    # the loop stopped
-    assert pk.host_syncs.value == -(-iters // pk.SYNC_EVERY)
+    assert out[5].dtype == torch.int32 and out[5].shape == ()
+    assert 0 < iters < 128 and pk.beam_steps.value == 0
+    assert reads == iters + 1
 
 
 @pytest.mark.parametrize("mesh", [False, True], ids=["engine", "mesh"])
@@ -269,11 +275,13 @@ def test_search_adds_its_beam_count_at_drain(mesh, monkeypatch):
     assert scores.shape == ids.shape == (3, 32) and (ids[:, 0] >= 0).all()
 
 
+@pytest.mark.parametrize("max_hops", [1, 2, 64])
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "sq8"])
 @pytest.mark.parametrize("metric", METRICS)
-def test_greedy_descend_matches_reference(metric, quantized):
-    """Three upper layers; with one hop of budget the port checks, finds
-    layers still moving and runs them again with more hops."""
+def test_greedy_descend_matches_reference(metric, quantized, max_hops):
+    """Three upper layers, the JAX loop's entries at every hop cap: one and
+    two hops stop layers that were still moving, 64 runs every layer to
+    its own stop."""
     R = _ref()
     rm, pm = metrics(metric)
     rng = np.random.default_rng(5)
@@ -282,53 +290,11 @@ def test_greedy_descend_matches_reference(metric, quantized):
     q = rng.normal(size=(9, 16)).astype(np.float32)
     entry = np.full(9, 11, np.int32)
     want = R.rk.greedy_descend(R.jnp.asarray(q), rp, R.jnp.asarray(stack),
-                               R.jnp.asarray(entry), rm)
-    for hops in (1, 8):
-        pk_hops = pk.DESCENT_HOPS
-        pk.DESCENT_HOPS = hops
-        try:
-            got = pk.greedy_descend(t(q), pp, t(stack), t(entry), pm)
-        finally:
-            pk.DESCENT_HOPS = pk_hops
-        np.testing.assert_array_equal(got.numpy(), n(want))
-    capped = R.rk.greedy_descend(R.jnp.asarray(q), rp, R.jnp.asarray(stack),
-                                 R.jnp.asarray(entry), rm, max_hops=2)
-    got = pk.greedy_descend(t(q), pp, t(stack), t(entry), pm, max_hops=2)
-    np.testing.assert_array_equal(got.numpy(), n(capped))
-
-
-@pytest.mark.parametrize("change", ["nothing", "links", "queries", "metric",
-                                    "pack", "sync_every", "descent_hops"])
-def test_graph_key_changes_with_what_a_graph_bakes_in(change, monkeypatch):
-    """The key of a cached descent graph: the same shapes and tensors give
-    the same key (queries and entries are copied in, so only their shapes
-    count); another link stack, another padded Q, another metric, another
-    vector table or another hop budget gives another. The plain beam's
-    block length gives the same: the beam on the card is K7, no graph."""
-    data, sq = torch.zeros(300, 16), torch.zeros(300)
-    links = torch.zeros((2, 300, 8), dtype=torch.int32)
-
-    def key(q, links, metric, pack):
-        ents = torch.zeros(q.shape[0], dtype=torch.int32)
-        return pk._graph_key("descent",
-                             pk._shapes(q, ents) + (pk.DESCENT_HOPS,),
-                             metric, pack, links)
-    first = key(torch.zeros(8, 16), links, VectorMetric.L2,
-                pk.DataPack(data, sq))
-    args = dict(q=torch.ones(8, 16), links=links, metric=VectorMetric.L2,
-                pack=pk.DataPack(data, sq))
-    other = {"links": ("links", links.clone()),
-             "queries": ("q", torch.zeros(64, 16)),
-             "metric": ("metric", VectorMetric.INNER_PRODUCT),
-             "pack": ("pack", pk.DataPack(data.clone(), sq))}
-    if change in other:
-        name, value = other[change]
-        args[name] = value
-    if change == "sync_every":
-        monkeypatch.setattr(pk, "SYNC_EVERY", pk.SYNC_EVERY * 2)
-    if change == "descent_hops":
-        monkeypatch.setattr(pk, "DESCENT_HOPS", pk.DESCENT_HOPS * 2)
-    assert (key(**args) == first) == (change in ("nothing", "sync_every"))
+                               R.jnp.asarray(entry), rm, max_hops=max_hops)
+    got = pk.greedy_descend(t(q), pp, t(stack), t(entry), pm,
+                            max_hops=max_hops)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), n(want))
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -986,17 +952,25 @@ def test_cuda_engine_matches_cpu_engine(quant):
 
 @pytest.mark.cuda
 def test_cuda_search_syncs_once_every_eight_steps():
+    """A search on the card reads no stop flag on the host: no
+    `hnsw.stop_read` span, whatever the ef and the batch."""
     _need_cuda()
+    from reindexer_tpu_torch import tracing
     _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    assert gpu._max_level > 0
     qs = rng.normal(size=(8, 32)).astype(np.float32)
-    for ef in (16, 64, 256):
-        for batch in (qs[:1], qs):
-            pk.host_syncs.reset()
-            pk.beam_steps.reset()
-            gpu.select_batch(batch, HnswSearchParams(k=10, ef=ef))
-            iters = pk.beam_steps.value
-            assert pk.host_syncs.value <= iters / pk.SYNC_EVERY + 2, (
-                ef, len(batch), pk.host_syncs.value, iters)
+    tracing.configure(keep=True)
+    try:
+        for ef in (16, 64, 256):
+            for batch in (qs[:1], qs):
+                pk.beam_steps.reset()
+                tracing.take()
+                gpu.select_batch(batch, HnswSearchParams(k=10, ef=ef))
+                names = [s[0] for s in tracing.take()]
+                assert pk.beam_steps.value > 0
+                assert "hnsw.stop_read" not in names, (ef, len(batch))
+    finally:
+        tracing.configure(None)
 
 
 @pytest.mark.cuda
@@ -1038,31 +1012,21 @@ def _deltas(counters, before):
                          ids=["l2", "ip", "sq8"])
 def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q,
                                               monkeypatch):
-    """Searches of one shape replay the descent's graph the first one
-    captured: with a new query set each time, the same ids as the CPU
-    engine (near-ties aside), ranks within rtol 1e-4, the same beam steps
-    and the same host reads in the descent, the card's only ones (its beam
-    is K7, which reads no stop flag); and the descent (with one hop of
-    budget too, so that layers run again) bit-identical to its eager chain
-    of kernels on the card, the beam's results K7's twin's."""
+    """Repeated searches of one shape, a new query set each time: the same
+    ids as the CPU engine (near-ties aside), ranks within rtol 1e-4, the
+    same beam steps; on the card one descent launch and one K7 launch a
+    search; the descent's entries and the beam's results its twins' on the
+    card."""
     _need_cuda()
     cpu, gpu, _, rng = _cpu_and_cuda(quant, metric=metric)
     p = HnswSearchParams(k=10, ef=128)
-    counters = (pk.graph_captures, pk.beam_steps, pk.host_syncs)
-    descent_syncs = []
-
-    def descend(*args, **kw):
-        before = pk.host_syncs.value
-        out = pk.greedy_descend(*args, **kw)
-        descent_syncs[-1] += pk.host_syncs.value - before
-        return out
-    monkeypatch.setattr(port_hnsw, "greedy_descend", descend)
+    counters = (pk.hnsw_descend_launches, pk.beam_steps,
+                pk.hnsw_beam_launches)
     for rnd in range(3):
         qs = rng.normal(size=(n_q, 32)).astype(np.float32)
         counts = []
         for ix in (cpu, gpu):
             before = [c.value for c in counters]
-            descent_syncs.append(0)
             res = ix.select_batch(qs, p)
             counts.append(_deltas(counters, before))
             if ix is cpu:
@@ -1070,81 +1034,29 @@ def test_cuda_cached_searches_match_cpu_engine(metric, quant, n_q,
         for a, b in zip(want, res):
             assert_same(a, b)
         assert counts[0][1] == counts[1][1] > 0, counts
-        assert counts[1][2] == descent_syncs[-1] == descent_syncs[-2] > 0, (
-            counts, descent_syncs)
-        assert counts[0][2] > descent_syncs[-2], (counts, descent_syncs)
-        # a miss captures the descent's pass, and only it
-        assert counts[1][0] == (1 if rnd == 0 else 0), counts
+        assert counts[0][::2] == (0, 0) and counts[1][::2] == (1, 1), counts
 
     pack, links, m = gpu._pack(for_search=True), gpu._d_links0, gpu.metric
     q = torch.from_numpy(qs).to(links.device)
     ents = torch.full((n_q,), gpu._entry, dtype=torch.int32,
                       device=links.device)
-    for hops in (1, 8):
-        default = pk.DESCENT_HOPS
-        pk.DESCENT_HOPS = hops
-        try:
-            graphed = pk.greedy_descend(q, pack, gpu._d_upper, ents, m)
-        finally:
-            pk.DESCENT_HOPS = default
-        eager = pk._descend_from(q, pack, gpu._d_upper, ents,
-                                 pk._entry_scores(q, pack, ents, m), 0,
-                                 hops, 64, m)
-        assert torch.equal(graphed, eager), hops
-    s, i, _ = pk.beam_search_layer(q, pack, links, eager[:, None], 128, 2,
+    kernel = pk.greedy_descend(q, pack, gpu._d_upper, ents, m)
+    plain = pk._descend_plain(q, pack, gpu._d_upper, ents, 64, m)
+    # fp32 sums in another order than the twin's: a near-tie may split
+    assert (kernel == plain).float().mean() >= 0.9
+    s, i, _ = pk.beam_search_layer(q, pack, links, plain[:, None], 128, 2,
                                    256, m)
-    state, block = pk._beam_program("layer", [q, eager[:, None]], pack,
-                                    links, 128, 2, 256, m)
-    pk._run_blocks(state, block)
+    twin = pk._beam_plain("layer", q, pack, links, (plain[:, None],), 128,
+                          2, 256, m)
     # fp32 sums in another order than the twin's: near-ties may swap
-    assert_same_topk(state[0].cpu(), state[1].cpu(), s.cpu(), i.cpu())
-
-
-@pytest.mark.cuda
-def test_cuda_cache_captures_again_after_a_rebuild_and_a_growth():
-    """An upsert that rebuilds the link mirror, and one that grows the
-    keeper, give the next search new tensors: its descent captures again,
-    the search matches the CPU engine, and the cache keeps no stale entry,
-    no entry but the descent's and no reference to the old tensors, within
-    its bound."""
-    _need_cuda()
-    cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
-    p = HnswSearchParams(k=10, ef=64)
-    qs = rng.normal(size=(8, 32)).astype(np.float32)
-    gpu.select_batch(qs, p)
-    ctx = pk._graph_ctx(gpu._d_links0.device)
-
-    def mutate(rows) -> list:
-        old = [weakref.ref(x) for x in (gpu._d_links0, gpu.keeper.data)]
-        for r in rows:
-            gpu.upsert(int(r), rng.normal(size=32).astype(np.float32))
-        gpu.commit()
-        before = pk.graph_captures.value
-        got = gpu.select_batch(qs, p)
-        assert pk.graph_captures.value > before
-        cpu.load_state_dict(gpu.state_dict())
-        for a, b in zip(cpu.select_batch(qs, p), got):
-            assert_same(a, b)
-        gc.collect()
-        assert len(ctx.entries) <= pk.CACHE_ENTRIES
-        assert not any(e.stale() for e in ctx.entries.values())
-        assert all(k[0] == "descent" for k in ctx.entries)
-        return old
-
-    links, _ = mutate(range(1, 6))
-    assert links() is None
-    cap = gpu.keeper.capacity
-    links, data = mutate(range(cap, cap + 3))
-    assert gpu.keeper.capacity > cap
-    assert links() is None and data() is None
+    assert_same_topk(twin[0].cpu(), twin[1].cpu(), s.cpu(), i.cpu())
 
 
 @pytest.mark.cuda
 def test_cuda_concurrent_searches_share_the_cache():
     """Sixteen threads search one index at once, with four query shapes,
-    so that their descents take turns on the device's cache entries and
-    their K7 launches interleave: every answer equals the one the same
-    search gave alone, and the cache holds the descent's entries only."""
+    so that their descent and K7 launches interleave: every answer equals
+    the one the same search gave alone."""
     _need_cuda()
     _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
     p = HnswSearchParams(k=10, ef=64)
@@ -1178,34 +1090,33 @@ def test_cuda_concurrent_searches_share_the_cache():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert not wrong, wrong
-    ctx = pk._graph_ctx(gpu._d_links0.device)
-    assert ctx.entries and all(k[0] == "descent" for k in ctx.entries)
 
 
 @pytest.mark.cuda
 def test_cuda_streaming_session_matches_cpu_session():
-    """Two streaming sessions a side, the second replaying the first's
-    graphs: the same batches as the CPU's sessions."""
+    """Two streaming sessions a side: the same batches as the CPU's
+    sessions; a card session's begin launches the descent kernel once."""
     _need_cuda()
     cpu, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
+    assert gpu._max_level > 0
     q = rng.normal(size=32).astype(np.float32)
     for _ in range(2):
-        before = pk.graph_captures.value
         batches = []
         for ix in (cpu, gpu):
+            before = pk.hnsw_descend_launches.value
             s = KnnStreamingSession(ix, q, 64)
+            assert pk.hnsw_descend_launches.value - before == (ix is gpu)
             batches.append([s.next_batch(64) for _ in range(3)])
         for (ids_a, sc_a), (ids_b, sc_b) in zip(*batches):
             assert ids_a.tolist() == ids_b.tolist()
             np.testing.assert_allclose(sc_a, sc_b, rtol=RTOL, atol=ATOL)
-    assert pk.graph_captures.value == before
 
 
 @pytest.mark.cuda
 def test_cuda_one_card_mesh_matches_cpu_mesh():
     """Four HNSW shards of one card against four of the CPU holding the
-    same graphs: the same answers, and a second search captures nothing
-    (each shard's tensors have their own cache entries)."""
+    same graphs: the same answers, each search one descent launch and one
+    K7 launch a shard."""
     _need_cuda()
     from reindexer_tpu_torch.parallel.context import MeshContext
     rng = np.random.default_rng(21)
@@ -1223,10 +1134,11 @@ def test_cuda_one_card_mesh_matches_cpu_mesh():
     idx["cpu"].load_state_dict(idx["cuda"].state_dict())
     qs = rng.normal(size=(8, 24)).astype(np.float32)
     p = HnswSearchParams(k=10, ef=64)
-    for rnd in range(2):
-        before = pk.graph_captures.value
+    counters = (pk.hnsw_descend_launches, pk.hnsw_beam_launches)
+    for _ in range(2):
+        before = [c.value for c in counters]
         got = idx["cuda"].select_batch(qs, p)
-        assert (pk.graph_captures.value == before) == (rnd == 1)
+        assert _deltas(counters, before) == (4, 4)
         for a, b in zip(idx["cpu"].select_batch(qs, p), got):
             assert_same(a, b)
 
@@ -1268,10 +1180,8 @@ def _k7_case(kind, quant, metric, n_q, ef, dims=16, n_rows=600, m0=16,
     inputs = (t(ent).to(dev),)
     m = VectorMetric[metric]
     if kind == "resume":
-        state, block = pk._beam_program("layer", [q, *inputs], pack, links,
-                                        ef, 2, 3, m)
-        pk._run_blocks(state, block)
-        inputs = tuple(state[:5])
+        inputs = pk._beam_plain("layer", q, pack, links, inputs, ef, 2, 3,
+                                m)[:5]
     return q, pack, links, inputs, m
 
 
@@ -1279,9 +1189,7 @@ def _k7_against_twin(kind, q, pack, links, inputs, ef, m):
     before = pk.hnsw_beam_launches.value
     got = pk.hnsw_beam(kind, q, pack, links, inputs, ef, 2, 2 * ef, m)
     assert pk.hnsw_beam_launches.value == before + 1
-    state, block = pk._beam_program(kind, [q, *inputs], pack, links, ef, 2,
-                                    2 * ef, m)
-    pk._run_blocks(state, block)
+    state = pk._beam_plain(kind, q, pack, links, inputs, ef, 2, 2 * ef, m)
     torch.cuda.synchronize()
     for name, a, b in zip(("w_s", "w_ids", "c_s", "c_ids", "visited", "it"),
                           got, state):
@@ -1339,6 +1247,73 @@ def test_cuda_k7_spills_past_shared_memory(case):
     _k7_against_twin(kind, q, pack, links, inputs, ef, m)
 
 
+def _descend_case(quant, n_q, dims, seed):
+    """(queries, pack, stack, entries) of one descent case on the card:
+    rows of small integers, so that every fp32 sum is exact and many
+    scores tie; four upper layers of 8 links, the top one all -1 (a padded
+    table), -1 slots, rows without links; every third query from the
+    second zero; valid entries."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    pack, _ = _int_graph(rng, 600, dims, 16, quant, dev)
+    stack = rng.integers(-1, 600, size=(4, 600, 8)).astype(np.int32)
+    stack[0] = -1
+    stack[:, rng.random(600) < 0.05] = -1
+    q = rng.integers(-3, 4, size=(n_q, dims)).astype(np.float32)
+    q[1::3] = 0
+    ents = rng.integers(0, 600, size=n_q).astype(np.int32)
+    return t(q).to(dev), pack, t(stack).to(dev), t(ents).to(dev)
+
+
+def _descend_against_twin(q, pack, stack, ents, m, max_hops):
+    """The kernel (one launch) against the plain twin on the CPU, bit for
+    bit; returns the entries."""
+    before = pk.hnsw_descend_launches.value
+    got = pk.greedy_descend(q, pack, stack, ents, m, max_hops=max_hops)
+    assert pk.hnsw_descend_launches.value == before + 1
+    cpu = pk.DataPack(*(None if x is None else x.cpu() for x in (
+        pack.data, pack.data_sq, pack.lo, pack.alpha)))
+    want = pk.greedy_descend(q.cpu(), cpu, stack.cpu(), ents.cpu(), m,
+                             max_hops=max_hops)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got.cpu(), want), (got.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_hops", [1, 64])
+@pytest.mark.parametrize("n_q", [1, 8, 64, 200])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "sq8"])
+def test_cuda_descend_matches_its_twin(quant, metric, n_q, max_hops):
+    """The descent kernel against its plain twin (the JAX loop written
+    out, on the CPU): the same entries bit for bit, ties to the lowest
+    link slot, nobody moving on the all -1 top layer. 13 dimensions take
+    the scalar loads, 16 the vector ones."""
+    _need_cuda()
+    dims = 16 if n_q in (1, 64) else 13
+    q, pack, stack, ents = _descend_case(quant, n_q, dims, n_q + max_hops)
+    got = _descend_against_twin(q, pack, stack, ents, VectorMetric[metric],
+                                max_hops)
+    if max_hops == 64:
+        assert (got != ents.cpu()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "sq8"])
+def test_cuda_descend_spills_past_shared_memory(quant):
+    """At 60,000 dimensions a block's query outgrows shared memory: the
+    kernel takes a global scratch and still matches its twin bit for bit;
+    at 96 it takes none."""
+    _need_cuda()
+    from reindexer_tpu_torch.ops import _build
+    lib = _build.load("hnsw_beam")
+    assert lib.hnsw_descend_spill_bytes(8, 96, 8) == 0
+    assert lib.hnsw_descend_spill_bytes(8, 60_000, 8) > 0
+    q, pack, stack, ents = _descend_case(quant, 8, 60_000, 7)
+    _descend_against_twin(q, pack, stack, ents, VectorMetric.L2, 64)
+
+
 @pytest.mark.cuda
 def test_cuda_search_past_shared_memory_matches_cpu_engine():
     """A select at an ef whose beam spills past shared memory (10,000,
@@ -1356,29 +1331,24 @@ def test_cuda_search_past_shared_memory_matches_cpu_engine():
 
 @pytest.mark.cuda
 def test_cuda_search_launches_k7_once(monkeypatch):
-    """A search on the card launches K7 once and captures no beam graph:
-    the first search of its shape captures the descent's pass alone, the
-    next nothing, and every host read of a stop flag is the descent's."""
+    """A search on the card launches K7 once and the descent kernel once,
+    and the descent is greedy_descend's (the engine's only way down)."""
     _need_cuda()
     _, gpu, _, rng = _cpu_and_cuda(n_rows=2000)
     assert gpu._max_level > 0
     p = HnswSearchParams(k=10, ef=64)
-    counters = (pk.hnsw_beam_launches, pk.graph_captures, pk.host_syncs)
-    descent_syncs = []
+    counters = (pk.hnsw_beam_launches, pk.hnsw_descend_launches)
+    descents = []
 
     def descend(*args, **kw):
-        before = pk.host_syncs.value
-        out = pk.greedy_descend(*args, **kw)
-        descent_syncs.append(pk.host_syncs.value - before)
-        return out
+        descents.append(1)
+        return pk.greedy_descend(*args, **kw)
     monkeypatch.setattr(port_hnsw, "greedy_descend", descend)
     for rnd in range(2):
         before = [c.value for c in counters]
         gpu.select_batch(rng.normal(size=(8, 32)).astype(np.float32), p)
-        launches, captures, syncs = _deltas(counters, before)
-        assert launches == 1
-        assert captures == (1 if rnd == 0 else 0)
-        assert syncs == descent_syncs[-1] > 0
+        assert _deltas(counters, before) == (1, 1)
+        assert len(descents) == rnd + 1
 
 
 def test_k7_counter_registered_and_nothing_built_at_import():
