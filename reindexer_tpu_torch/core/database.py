@@ -38,9 +38,54 @@ from .namespace import Namespace
 from .payload import IndexDef
 from .transaction import Transaction
 from .. import tracing
+from ..query import executor
 from ..query.executor import Selecter
 from ..query.query import Query
 from ..query.results import QueryResults, ResultItem
+
+# knn_batch calls whose results the C++ lane assembled, and those the
+# Python loop did (no compiler, or a result the lane does not take)
+native_assemblies = tracing.counter("knn_batch.native_assemblies")
+python_assemblies = tracing.counter("knn_batch.python_assemblies")
+
+
+def _knn_results(ns: Namespace, ns_name: str, results) -> list[QueryResults]:
+    """One QueryResults a search result: for each id that is a live row,
+    its document copied without the keys that name a vector index, its row
+    and its rank. csrc/scalar_native.cpp::knn_items builds a result's items
+    in one call; the loop below is its twin, taken when the lane is absent
+    or bails. The caller holds ns.lock."""
+    vector_names = frozenset(d.name for d in ns.payload_type.indexes
+                             if d.is_vector)
+    docs = ns.items
+    mod = executor._scalar_native()
+    if mod is not None:
+        out = []
+        for res in results:
+            items = mod.knn_items(docs, res.ids, res.ranks, vector_names,
+                                  ns_name)
+            if items is None:
+                break
+            out.append(QueryResults(ns_name=ns_name, items=items))
+        else:
+            native_assemblies.add()
+            return out
+    python_assemblies.add()
+    n = len(docs)
+    out = []
+    for res in results:
+        items = []
+        if res.ranks is not None:
+            for rid, rank in zip(res.ids.tolist(), res.ranks.tolist()):
+                doc = docs[rid] if 0 <= rid < n else None
+                if doc is not None:
+                    items.append(ResultItem(
+                        {k: v for k, v in doc.items()
+                         if k not in vector_names},
+                        rid, rank, {}, ns_name))
+        out.append(QueryResults(ns_name=ns_name, items=items))
+    return out
+
 
 SYSTEM_NS = ("#namespaces", "#memstats", "#perfstats", "#queriesperfstats",
              "#config", "#activitystats", "#clientsstats", "#replicationstats")
@@ -421,22 +466,7 @@ class Reindexer:
             with ns.timed_lock if tracing.on else ns.lock, \
                     (tracing.span("knn_batch.assemble") if tracing.on
                      else tracing.OFF):
-                out = []
-                for res in results:
-                    items = []
-                    for rid, rank in zip(res.ids, res.ranks
-                                         if res.ranks is not None else []):
-                        doc = ns.get_item(int(rid))
-                        if doc is None:
-                            continue
-                        doc = {k: v for k, v in doc.items()
-                               if ns.index_def(k) is None
-                               or not ns.index_def(k).is_vector}
-                        items.append(ResultItem(doc=doc, row_id=int(rid),
-                                                rank=float(rank),
-                                                ns_name=ns_name))
-                    out.append(QueryResults(ns_name=ns_name, items=items))
-                return out
+                return _knn_results(ns, ns_name, results)
 
     def ft_batch(self, ns_name: str, field: str,
                  dsls: Sequence[str]) -> list[QueryResults]:

@@ -34,6 +34,9 @@
 //     the caller, which probes them at the surviving candidate rows
 //     (executor._join_matches(only_rows=ids)). AND/NOT probes commute, so
 //     applying joins after the scalar entries is result-identical.
+//
+// knn_items builds the ResultItems of Reindexer.knn_batch the same way:
+// one call a search result, the Python loop its twin and fallback.
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
@@ -917,6 +920,89 @@ static PyObject* point_items(PyObject*, PyObject* args) {
   return out.release();
 }
 
+// ---------------------------------------------------------------------
+// knn_items(items, ids, ranks, vector_names, ns_name)
+//   -> None (bail) | list[ResultItem]
+// The native core of core/database.py::_knn_results, one search result a
+// call: for each id in order, the live row's document copied into a new
+// dict without the top-level keys that name a vector index, as
+// ResultItem(doc, row, rank, {}, ns_name). Ids out of [0, len(items)) and
+// deleted rows are skipped (Namespace.get_item); the float32 rank widens
+// to the double float(np.float32) gives. ranks None gives no items. Bails
+// on ids that are not a contiguous 1-d int64 buffer, ranks not float32,
+// unequal lengths, a document that is not a plain dict or a key that is
+// not a plain str.
+// ---------------------------------------------------------------------
+struct Buffer {
+  Py_buffer view;
+  bool held = false;
+  ~Buffer() {
+    if (held) PyBuffer_Release(&view);
+  }
+  // a contiguous 1-d buffer of one-character format `code` (native order)
+  // and `size` bytes an element; false (no error set) otherwise
+  bool take(PyObject* o, char code, Py_ssize_t size) {
+    if (PyObject_GetBuffer(o, &view, PyBUF_C_CONTIGUOUS | PyBUF_FORMAT) < 0) {
+      PyErr_Clear();
+      return false;
+    }
+    held = true;
+    const char* f = view.format ? view.format : "B";
+    if (*f == '@' || *f == '=' || *f == '<') f++;
+    // numpy names int64 'l' where long is 64 bits; itemsize checks that
+    return view.ndim == 1 && view.itemsize == size &&
+           (f[0] == code || (code == 'q' && f[0] == 'l')) && f[1] == '\0';
+  }
+  Py_ssize_t len() const { return view.shape[0]; }
+};
+
+static PyObject* knn_items(PyObject*, PyObject* args) {
+  PyObject *items, *ids, *ranks, *vec, *ns_name;
+  if (!PyArg_ParseTuple(args, "OOOOO", &items, &ids, &ranks, &vec, &ns_name))
+    return nullptr;
+  if (!g_ri_type || !PyList_Check(items) || !PyFrozenSet_Check(vec))
+    Py_RETURN_NONE;
+  if (ranks == Py_None) return PyList_New(0);
+  Buffer bi, br;
+  if (!bi.take(ids, 'q', 8) || !br.take(ranks, 'f', 4) ||
+      bi.len() != br.len())
+    Py_RETURN_NONE;
+  const auto* rid = static_cast<const int64_t*>(bi.view.buf);
+  const auto* rk = static_cast<const float*>(br.view.buf);
+  const Py_ssize_t n = bi.len();
+  const Py_ssize_t cap = PyList_GET_SIZE(items);
+
+  Ref out(PyList_New(0));
+  if (!out) return nullptr;
+  for (Py_ssize_t i = 0; i < n; i++) {
+    const int64_t r = rid[i];
+    if (r < 0 || r >= cap) continue;
+    PyObject* doc = PyList_GET_ITEM(items, r);  // borrowed
+    if (doc == Py_None) continue;
+    if (!PyDict_CheckExact(doc)) Py_RETURN_NONE;
+    Ref copy(PyDict_New());
+    if (!copy) return nullptr;
+    Py_ssize_t pos = 0;
+    PyObject *k, *v;  // borrowed
+    while (PyDict_Next(doc, &pos, &k, &v)) {
+      if (!PyUnicode_CheckExact(k)) Py_RETURN_NONE;
+      const int skip = PySet_Contains(vec, k);
+      if (skip < 0) return nullptr;
+      if (!skip && PyDict_SetItem(copy.get(), k, v) < 0) return nullptr;
+    }
+    Ref row_obj(PyLong_FromLongLong(r));
+    Ref rank_obj(PyFloat_FromDouble(static_cast<double>(rk[i])));
+    Ref joined(PyDict_New());
+    if (!row_obj || !rank_obj || !joined) return nullptr;
+    PyObject* argv[] = {copy.get(), row_obj.get(), rank_obj.get(),
+                        joined.get(), ns_name};
+    Ref item(PyObject_Vectorcall(g_ri_type, argv, 5, nullptr));
+    if (!item) return nullptr;
+    if (PyList_Append(out.get(), item.get()) < 0) return nullptr;
+  }
+  return out.release();
+}
+
 // eval_and(meta, entries, items)
 //   -> None (bail: caller runs the Python paths)
 //   -> (rows_bytearray_int64, join_positions_tuple)
@@ -953,6 +1039,9 @@ static PyMethodDef methods[] = {
      "setup(QueryEntry, JoinedQuery[, ResultItem]): install engine types"},
     {"point_items", point_items, METH_VARARGS,
      "point_items(fm, cond, values, items, limit, ns_name)"
+     " -> None | list[ResultItem]"},
+    {"knn_items", knn_items, METH_VARARGS,
+     "knn_items(items, ids, ranks, vector_names, ns_name)"
      " -> None | list[ResultItem]"},
     {"build_meta", build_meta, METH_VARARGS,
      "build_meta(fields, columns) -> {name: FieldMeta capsule}"},

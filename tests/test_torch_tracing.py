@@ -8,7 +8,8 @@ spans moved to unix time by the anchor enclose torch.profiler's events,
 the JSONL exporter writes OTLP lines at flush and keeps every span past the
 buffer's capacity, a buffer kept for `take()` counts the spans it drops
 past its cap, and a collection is a `python.gc` span under its request.
-On the CPU, a few seconds.
+A `knn_batch` counts the lane that assembled its results, the C++ one or
+the Python loop. On the CPU, a few seconds.
 """
 import ast
 import gc
@@ -113,6 +114,35 @@ def test_registered_counters_keep_their_module_attributes():
             "kernels.bf_scan", "ivf.seg_rows", "ivf.seg_live",
             "ns.hash_fallbacks"} <= set(tracing.counters())
 
+
+
+def test_the_assembly_counters_are_registered():
+    from reindexer_tpu_torch.core import database
+    assert (tracing.counter("knn_batch.native_assemblies")
+            is database.native_assemblies)
+    assert (tracing.counter("knn_batch.python_assemblies")
+            is database.python_assemblies)
+    assert {"knn_batch.native_assemblies",
+            "knn_batch.python_assemblies"} <= set(tracing.counters())
+
+
+@pytest.mark.parametrize("lane", ["native", "python"])
+def test_a_knn_batch_counts_the_lane_of_its_assembly(lane, monkeypatch):
+    from reindexer_tpu_torch.query import executor
+    if lane == "python":
+        monkeypatch.setattr(executor, "_scalar_native", lambda: None)
+    elif executor._scalar_native() is None:
+        pytest.skip("the C++ lane did not build: no compiler")
+    db = make_db("vec_bf")
+    before = tracing.counters()
+    run(db, "vec_bf", "knn_batch")
+    after = tracing.counters()
+    added = {name: after[name] - before[name]
+             for name in ("knn_batch.native_assemblies",
+                          "knn_batch.python_assemblies")}
+    other = "python" if lane == "native" else "native"
+    assert added == {f"knn_batch.{lane}_assemblies": 1,
+                     f"knn_batch.{other}_assemblies": 0}
 
 BF_BATCH = {("Reindexer.knn_batch", None),
             ("ns.lock_wait", "Reindexer.knn_batch"),
